@@ -1,33 +1,51 @@
 #!/usr/bin/env python3
-"""Chip smoke for strawberry_tpu_torch: drives the port's main path once on
+"""Chip smoke for strawberry_tpu_torch: drives the port's main paths once on
 one NVIDIA GPU and fails unless every phase holds.
 
     python3 chip_smoke.py [--n-frags N]
 
 Phases:
   1. the card's name and power limit (nvidia-smi); CUDA must be available.
-  2. build the host C++ library and the EM kernel (csrc/em_bucket.cu) from
-     this checkout, timed.
-  3. the kernel against its plain PyTorch version at the four tier shapes,
-     on seeded random buckets that include a zero-denominator locus,
-     inactive loci and an all-zero column. f64: rtol/atol 1e-9 against the
-     plain version and the numpy host oracle (quant/em.py::em_run), and two
-     runs bit-identical. f32: the bars of tests/test_pallas_em.py against
-     the f64 and the f32 plain versions (median relative error < 1e-4,
-     > 95% within 0.1, inactive loci exactly theta0). Times from CUDA
-     events.
+  2. build the host C++ library and the three kernels (csrc/em_bucket.cu,
+     csrc/quant_prep.cu, csrc/mcf_bucket.cu) from this checkout, the
+     kernels in parallel, timed.
+  3. the EM kernel against its plain PyTorch version at the four tier
+     shapes, on seeded random buckets that include a zero-denominator
+     locus, inactive loci and an all-zero column. f64: rtol/atol 1e-9
+     against the plain version and the numpy host oracle
+     (quant/em.py::em_run), and two runs bit-identical. f32: the bars of
+     tests/test_pallas_em.py against the f64 and the f32 plain versions
+     (median relative error < 1e-4, > 95% within 0.1, inactive loci
+     exactly theta0). Times from CUDA events.
+  3b. the quant-prep kernels against their plain version, array-equal, on
+     a seeded synthetic chunk that hits every edge case (padded features,
+     a candidate exon past the last one, an intron after the last exon, a
+     hit with no features, 64-exon isoforms, 16-feature hits, 128
+     segments). CUDA-event times.
+  3c. the min-cost-flow kernel against its plain version and
+     mincostflow.solve_dense, array-equal, on seeded random CMPC problems
+     at the node buckets 64, 128 and 256, with an infeasible problem and
+     an inactive locus. CUDA-event times.
   4. end to end through the CLI on the bench's realistic shape (bench.py
      dataset_realistic: seed 303, 24 x 16 Mb chromosomes, up to 20
      isoforms) at 1M fragments (~2M reads), generated once under
      build/chip_smoke/: `-g -r` host f64 (the default), `-g -r --fast-em`
-     (the main path; every tier-fitting EM on the card), `-g -r` with
-     STRAWB_DEVICE_EM=1, and `-g --fast-em`. The fast-em transcript set
-     must equal the default's with TPM p99 relative error <= 1e-3, and
-     every tier-fitting EM must have gone through the kernel (launch
-     count = full and partial tier batches). The fast-em run is repeated
-     under torch.profiler and the pipeline's phase timer (device busy
-     time, phase report), and the kernel is held against its plain
-     version again on the first full bucket of each tier that run made.
+     (every tier-fitting EM on the card), `-g -r` with STRAWB_DEVICE_EM=1,
+     `-g -r` with STRAWB_DEVICE_PREP=all and =budget, `-g` (the default),
+     `-g` with STRAWB_DEVICE_MCF=1 and the same with STRAWB_FORCE_HOST=1
+     (every flow on the host solver), and `-g --fast-em`. Every kernel
+     launch count is set to 0 just before each run and read just after it.
+     The fast-em transcript set must equal the default's with TPM p99
+     relative error <= 1e-3, and every tier-fitting EM must have gone
+     through the kernel. The prep runs must give the default's GTF body
+     byte for byte, with device loci and prep launches; the MCF run must
+     give the body of its host-solver twin byte for byte, with device
+     problems and MCF launches. The fast-em, prep "all" and MCF runs are
+     repeated under torch.profiler and the pipeline's phase timer
+     (device busy time, each kernel's share, phase report). Each kernel is then held against its plain version
+     again on inputs the main path made: the first full bucket of each
+     EM tier, the first full prep chunk, the largest bucket of each MCF
+     node size.
 
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}. Any failure exits nonzero without it.
@@ -197,6 +215,288 @@ def check_kernel(dev):
     return report
 
 
+# --------------------------------------------------------------- phase 3b
+def synthetic_prep_chunk(seed, n_iso=32, n_loci=16):
+    """The kernel inputs of a seeded synthetic chunk of device-prep loci,
+    as quant/device_prep.py marshals them: (arrays, tables, P), tables =
+    (exl, exr, nex, inl, inn). Reads are drawn on the loci's isoforms and
+    then perturbed to hit the kernels' edge cases: a feature shifted off
+    its exon, an intron one base off, a MATCH past the last exon (candidate
+    exon == exon count), an intron after the last exon, a non-MATCH first
+    feature, gaps, padded feature slots, a hit with no features, a locus
+    with no hits, isoforms of 1 and 64 exons (clamped candidate and cursor
+    indices), 16-feature hits and a locus with 128 segments. The port's
+    tests use it too."""
+    import numpy as np
+    from strawberry_tpu_torch.quant.device_prep import marshal
+    rng = np.random.default_rng(seed)
+    i32max = 2**31 - 1
+    exl = np.zeros((n_iso, 64), np.int32)
+    exr = np.full((n_iso, 64), i32max, np.int32)
+    inl = np.zeros((n_iso, 64), np.int32)
+    inn = np.zeros((n_iso, 64), np.int32)
+    nex = np.zeros(n_iso, np.int32)
+    for t in range(n_iso):
+        ne = (1, 64, 2)[t] if t < 3 else int(rng.integers(1, 65))
+        pos = int(rng.integers(1000, 1_000_000))
+        for e in range(ne):
+            ln = int(rng.integers(5, 200))
+            exl[t, e], exr[t, e] = pos, pos + ln - 1
+            pos += ln
+            if e < ne - 1:
+                gap = int(rng.integers(1, 400))
+                inl[t, e], inn[t, e] = pos, gap
+                pos += gap
+        nex[t] = ne
+
+    def read_on(t):
+        ne = int(nex[t])
+        e = int(rng.integers(0, ne))
+        f = []
+        for k in range(int(rng.integers(1, 9))):
+            a = int(exl[t, e]) if f and f[-1][0] == 1 else \
+                int(rng.integers(exl[t, e], exr[t, e] + 1))
+            b = int(rng.integers(a, exr[t, e] + 1))
+            f.append([0, a, b - a + 1])
+            if e == ne - 1:
+                break
+            r = rng.random()
+            if r < 0.65:    # the isoform's intron
+                f.append([1, int(inl[t, e]), int(inn[t, e])])
+                e += 1
+            elif r < 0.8:   # a gap inside the exon
+                f.append([2, b + 1, int(rng.integers(1, 30))])
+            else:           # an intron one base off
+                f.append([1, int(inl[t, e]) + 1, int(inn[t, e])])
+                e += 1
+        last = int(exr[t, ne - 1])
+        r = rng.random()
+        if r < 0.1:
+            f[0][1] -= 1                       # may leave its exon
+            f[0][2] += 1
+        elif r < 0.2:
+            f.append([0, last + 5, 20])        # past the last exon
+        elif r < 0.3:
+            f.append([1, last + 1, 50])        # intron after the last exon
+        elif r < 0.35:
+            f.insert(0, [2, f[0][1] - 10, 10])  # non-MATCH first feature
+        return f[:16]
+
+    def long_read(t, e0, n):
+        """n features alternating MATCH/INTRON from exon e0 of isoform t"""
+        f, e = [], e0
+        while len(f) < n:
+            f.append([0, int(exl[t, e]), int(exr[t, e] - exl[t, e] + 1)])
+            if len(f) < n:
+                f.append([1, int(inl[t, e]), int(inn[t, e])])
+                e += 1
+        return f
+
+    loc_iso, loc_hits = [], []
+    for loc in range(n_loci):
+        ids = [0, 1, 2] if loc == 0 else \
+            list(rng.choice(n_iso, int(rng.integers(1, 6)), replace=False))
+        nh = 0 if loc == 3 else int(rng.integers(1, 26))
+        hits = [read_on(int(rng.choice(ids)) if rng.random() < 0.85
+                        else int(rng.integers(n_iso))) for _ in range(nh)]
+        if loc == 0:
+            e63 = int(exr[1, 63])
+            hits += [long_read(1, 10, 16), long_read(1, 48, 15),
+                     [[0, int(exl[1, 63]), 5], [1, e63 + 1, 40]],
+                     [[0, e63 + 5, 20], [1, e63 + 30, 40], [0, e63 + 80, 9]],
+                     [[0, int(exl[0, 0]), 3], [1, int(exr[0, 0]) + 1, 7]],
+                     []]                       # a hit with no features
+        loc_iso.append([int(i) for i in ids])
+        loc_hits.append(hits)
+
+    hits = [h for hs in loc_hits for h in hs]
+    feats = [x for h in hits for x in h]
+    h_off = np.concatenate([[0], np.cumsum([len(h) for h in hits])])
+    hit_loc = np.concatenate([[0], np.cumsum([len(hs) for hs in loc_hits])])
+    d_iso_off = np.concatenate([[0], np.cumsum([len(i) for i in loc_iso])])
+    d_iso_idx = np.array([i for ids in loc_iso for i in ids], np.int64)
+    pair_base = np.concatenate([[0], np.cumsum(
+        np.diff(hit_loc) * np.diff(d_iso_off))])
+    seg_off, seg_l, seg_r = [0], [], []
+    for loc, ids in enumerate(loc_iso):
+        pos = int(exl[ids].min()) - 200
+        for _ in range(128 if loc == 0 else int(rng.integers(1, 129))):
+            a = pos + int(rng.integers(0, 300))
+            b = a + int(rng.integers(0, 300))
+            seg_l.append(a)
+            seg_r.append(b)
+            pos = b + 1
+        seg_off.append(len(seg_l))
+    code, left, ln = (np.array([x[k] for x in feats], np.int64)
+                      for k in range(3))
+    arrays = marshal(hit_loc.astype(np.int64), h_off.astype(np.int64),
+                     code.astype(np.int8), left, ln.astype(np.int32),
+                     d_iso_off.astype(np.int64), d_iso_idx,
+                     pair_base.astype(np.int64), np.array(seg_off),
+                     np.array(seg_l, np.int64), np.array(seg_r, np.int64),
+                     np.arange(n_loci))
+    return arrays, (exl, exr, nex, inl, inn), int(pair_base[-1])
+
+
+def prep_inputs(arrays, tables, dev):
+    """PrepInputs on `dev` from marshalled arrays and isoform tables."""
+    import torch
+    from strawberry_tpu_torch.quant.cuda_prep import PrepInputs
+    from strawberry_tpu_torch.quant.device_prep import tables_to_torch
+    return PrepInputs(**{k: torch.from_numpy(v).to(dev)
+                         for k, v in arrays.items()},
+                      **tables_to_torch(*tables, dev))
+
+
+def compare_prep(dev, arrays, tables, P, what):
+    """The prep kernels against their plain version on one chunk:
+    array-equal, two runs identical; returns {ms, plain_ms, max_abs_err}."""
+    import torch
+    from strawberry_tpu_torch.quant.cuda_prep import (quant_prep_cuda,
+                                                      quant_prep_reference)
+    x = prep_inputs(arrays, tables, dev)
+    ck, rk = quant_prep_cuda(x, P)
+    ck2, rk2 = quant_prep_cuda(x, P)
+    cr, rr = quant_prep_reference(x, P)
+    torch.cuda.synchronize()
+    require(torch.equal(ck, ck2) and torch.equal(rk, rk2),
+            f"{what}: prep kernels not identical across runs")
+    err = max((ck.int() - cr.int()).abs().max().item() if P else 0,
+              (rk.int() - rr.int()).abs().max().item() if len(rk) else 0)
+    require(torch.equal(ck, cr) and torch.equal(rk, rr),
+            f"{what}: prep kernels differ from the plain version "
+            f"(max abs err {err})")
+    n_ok = int(ck.sum().item())
+    require(0 < n_ok < P, f"{what}: {n_ok} of {P} pairs compatible; the "
+            "chunk must have both")
+    ms = cuda_ms(lambda: quant_prep_cuda(x, P), reps=20)
+    plain_ms = cuda_ms(lambda: quant_prep_reference(x, P), reps=3)
+    log(f"  {what}: {P} pairs ({n_ok} compatible), {len(rk)} hits, "
+        f"{len(arrays['ni'])} loci: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, array-equal")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": float(err),
+            "pairs": P, "hits": len(rk)}
+
+
+# --------------------------------------------------------------- phase 3c
+def random_cmpc_problem(rng, n_exons, p_far=0.15):
+    """Random DAG over exon nodes + source/sink + circulation arc, with
+    lower bounds on a subset of arcs: the CMPC flow shape of
+    tests/test_device_flow.py (p_far: the chance of a non-adjacent arc).
+    The port's tests use it too."""
+    import numpy as np
+    M = n_exons + 2
+    src, snk = n_exons, n_exons + 1
+    has = np.zeros((M, M), bool)
+    cost = np.zeros((M, M), np.int64)
+    lower = np.zeros((M, M), np.int64)
+    for u in range(n_exons):
+        for v in range(u + 1, n_exons):
+            if rng.random() < (0.6 if v == u + 1 else p_far):
+                has[u, v] = True
+                cost[u, v] = rng.integers(0, 50)
+                lower[u, v] = 1 if rng.random() < 0.7 else 0
+    for v in range(n_exons):
+        if not has[:n_exons, v].any():
+            has[src, v] = True
+        if not has[v, :n_exons].any():
+            has[v, snk] = True
+    has[snk, src] = True
+    return cost, has, lower
+
+
+def infeasible_problem():
+    """A lower bound on an arc into a node with no way back."""
+    import numpy as np
+    has = np.zeros((3, 3), bool)
+    lower = np.zeros((3, 3), np.int64)
+    has[0, 1] = True
+    lower[0, 1] = 1
+    return np.zeros((3, 3), np.int64), has, lower
+
+
+def pad_mcf_bucket(problems, M, n_inactive=0):
+    """Numpy (cost, has_arc, lower, active) of one node bucket, zero-padded
+    as assembly/device.py pads it, with `n_inactive` all-zero loci after
+    the problems."""
+    import numpy as np
+    B = len(problems) + n_inactive
+    cost = np.zeros((B, M, M), np.int64)
+    has = np.zeros((B, M, M), bool)
+    low = np.zeros((B, M, M), np.int64)
+    for b, (c, h, l) in enumerate(problems):
+        m = c.shape[0]
+        cost[b, :m, :m] = c
+        has[b, :m, :m] = h
+        low[b, :m, :m] = l
+    act = np.zeros(B, bool)
+    act[:len(problems)] = True
+    return cost, has, low, act
+
+
+def compare_mcf(dev, bucket, what, problems=None):
+    """The MCF kernel against its plain version (and, given the problems,
+    against solve_dense) on one padded bucket: array-equal, two runs
+    identical; returns {ms, plain_ms, max_abs_err, infeasible}."""
+    import numpy as np
+    import torch
+    from strawberry_tpu.assembly.mincostflow import solve_dense
+    from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_bucket_cuda,
+                                                        mcf_bucket_reference)
+    args = [torch.from_numpy(a).to(dev) for a in bucket]
+    fk, ik = mcf_bucket_cuda(*args)
+    fk2, ik2 = mcf_bucket_cuda(*args)
+    fr, ir = mcf_bucket_reference(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(fk, fk2) and torch.equal(ik, ik2),
+            f"{what}: MCF kernel not identical across runs")
+    err = (fk - fr).abs().max().item()
+    require(torch.equal(fk, fr) and torch.equal(ik, ir),
+            f"{what}: MCF kernel differs from the plain version (max abs "
+            f"err {err}, infeasible flags equal: {torch.equal(ik, ir)})")
+    flow, inf = fk.cpu().numpy(), ik.cpu().numpy()
+    for b, p in enumerate(problems or []):
+        host = solve_dense(*[x.copy() for x in p])
+        m = p[0].shape[0]
+        require((host is None) == bool(inf[b]) and (
+            host is None or np.array_equal(host, flow[b, :m, :m])),
+            f"{what}: problem {b} ({m} nodes) differs from solve_dense")
+    require(not inf[~bucket[3]].any() and np.array_equal(
+        flow[~bucket[3]], bucket[2][~bucket[3]]),
+        f"{what}: inactive loci must return lower, feasible")
+    ms = cuda_ms(lambda: mcf_bucket_cuda(*args), reps=5)
+    plain_ms = cuda_ms(lambda: mcf_bucket_reference(*args), reps=1)
+    B, M = bucket[0].shape[:2]
+    log(f"  {what} {B}x{M}x{M}: {int(inf.sum())} infeasible; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, array-equal")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": float(err),
+            "infeasible": int(inf.sum())}
+
+
+def check_mcf(dev):
+    """Phase 3c: seeded random CMPC problems at each node bucket (sizes
+    that land in it), an infeasible problem in the first, and an inactive
+    locus in each; returns {ms, plain_ms, max_abs_err, buckets}."""
+    import numpy as np
+    rep = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "buckets": {}}
+    for M, B, lo in ((64, 32, 2), (128, 12, 63), (256, 6, 127)):
+        rng = np.random.default_rng(2000 + M)
+        probs = [random_cmpc_problem(rng, int(rng.integers(lo, M - 1)),
+                                     p_far=min(0.15, 4.0 / lo))
+                 for _ in range(B)]
+        if M == 64:
+            probs.append(infeasible_problem())
+        r = compare_mcf(dev, pad_mcf_bucket(probs, M, n_inactive=1),
+                        f"MCF bucket {M}", probs)
+        require(M != 64 or r["infeasible"] >= 1,
+                "the infeasible problem was not found infeasible")
+        rep["ms"] += r["ms"]
+        rep["plain_ms"] += r["plain_ms"]
+        rep["max_abs_err"] = max(rep["max_abs_err"], r["max_abs_err"])
+        rep["buckets"][f"{B + 1 + (M == 64)}x{M}x{M}"] = r
+    return rep
+
+
 # ---------------------------------------------------------------- phase 4
 def realistic_set(n_frags):
     from strawberry_tpu.sim import make_dataset
@@ -230,9 +530,28 @@ def body(path):
         return "".join(line for line in f if not line.startswith("#"))
 
 
+KERNELS = ("em_bucket", "quant_prep", "mcf_bucket")
+# the __global__ functions of each kernel source, as the profiler names them
+KERNEL_FUNCTIONS = {"em_bucket": ("em_bucket_kernel",),
+                    "quant_prep": ("compat_kernel", "rows_kernel"),
+                    "mcf_bucket": ("mcf_bucket_kernel",)}
+
+
+def launch_counters():
+    """{kernel name: its wrapper} for every kernel the main paths run."""
+    from strawberry_tpu_torch.assembly.cuda_mcf import mcf_bucket_cuda
+    from strawberry_tpu_torch.quant.cuda_em import em_bucket_cuda
+    from strawberry_tpu_torch.quant.cuda_prep import quant_prep_cuda
+    return {"em_bucket": em_bucket_cuda, "quant_prep": quant_prep_cuda,
+            "mcf_bucket": mcf_bucket_cuda}
+
+
 def run_cli(name, argv, env):
-    """One CLI run in this process; returns (gtf path, wall s, the run's EM
-    dispatcher, tier-fitting problem count, expected kernel launches)."""
+    """One CLI run in this process, with every launch count set to 0 just
+    before it and read just after it. Returns the GTF path, the wall, the
+    EM dispatcher with its tier-fitting count and expected launches, the
+    TorchSample, and the run's launch counts."""
+    from types import SimpleNamespace
     from strawberry_tpu_torch import cli
     from strawberry_tpu_torch.quant import device as qdev
 
@@ -266,17 +585,24 @@ def run_cli(name, argv, env):
             os.remove(out[:-4] + ext)
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    orig = qdev.EmDispatcher
+    orig, orig_run = qdev.EmDispatcher, cli.run_driver
+    samples = []
     qdev.EmDispatcher = Recording
+    cli.run_driver = lambda *a, **k: samples.append(orig_run(*a, **k)) \
+        or samples[-1]
+    counters = launch_counters()
     try:
         import torch
         torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv + ["-o", out, "-T", out[:-4] + ".log"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counters.items()}
     finally:
-        qdev.EmDispatcher = orig
+        qdev.EmDispatcher, cli.run_driver = orig, orig_run
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -289,72 +615,166 @@ def run_cli(name, argv, env):
     for t in d.tier_of:
         if t is not None:
             n_fit[t] += 1
-    launches = sum(math.ceil(n / qdev._TIERS[t][2])
-                   for t, n in enumerate(n_fit))
+    want = sum(math.ceil(n / qdev._TIERS[t][2]) for t, n in enumerate(n_fit))
+    sample = samples[0]
     log(f"  {name}: wall {wall:.3f} s, EM device {d.n_device} / host "
-        f"{d.n_host}, tier-fitting {sum(n_fit)} {n_fit}")
-    return out, wall, d, sum(n_fit), launches
+        f"{d.n_host}, tier-fitting {sum(n_fit)} {n_fit}, flow "
+        f"{sample.flow_stats}, prep {getattr(sample, 'prep_stats', {})}, "
+        f"launches {launches}")
+    return SimpleNamespace(out=out, wall=wall, d=d, fit=sum(n_fit),
+                           want=want, sample=sample, launches=launches)
 
 
-def profiled_run(name, argv):
+def profiled_run(name, argv, env=None):
     """The run again under torch.profiler (device activity only) and the
-    pipeline's phase timer: device busy time and the phase report."""
+    pipeline's phase timer: device busy time, each kernel's share of it,
+    and the phase report."""
     from torch.profiler import ProfilerActivity, profile
     from strawberry_tpu.utils import profiling
     profiling.GLOBAL.phases.clear()
     profiling.enable()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _out, wall, _d, _fit, _want = run_cli(name, argv, {})
+            wall = run_cli(name, argv, env or {}).wall
             phases = profiling.GLOBAL.report()  # before the trace is read
     finally:
         profiling.GLOBAL.enabled = False
     log(phases)
-    busy = kern = 0.0
+    busy = 0.0
+    kern = dict.fromkeys(KERNELS, 0.0)
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:  # older torch
             us = e.self_cuda_time_total
         busy += us / 1e3
-        if "em_bucket" in e.key:
-            kern += us / 1e3
+        for k, fns in KERNEL_FUNCTIONS.items():
+            if any(f in e.key for f in fns):
+                kern[k] += us / 1e3
     if busy == 0.0:
         log("  device busy time: not measured (the profiler saw no device "
             "activity)")
         return {"wall_s": wall, "device_busy_ms": None}
     log(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} ms "
-        f"(EM kernel {kern:.3f} ms), idle share "
-        f"{1 - busy / (wall * 1e3):.4f}")
+        f"(kernels {kern} ms), idle share {1 - busy / (wall * 1e3):.4f}")
     return {"wall_s": wall, "device_busy_ms": busy, "kernel_ms": kern,
             "idle_share": 1 - busy / (wall * 1e3)}
 
 
+def require_no_launches(run, what):
+    require(not any(run.launches.values()),
+            f"{what}: kernels launched in a run that routes nothing to the "
+            f"card: {run.launches}")
+
+
+def prep_runs(base, host):
+    """`-g -r` under STRAWB_DEVICE_PREP=all and =budget: the default's GTF
+    body byte for byte, device loci and prep launches in each. Returns
+    ({mode: Run}, the first full chunk of the "all" run as (arrays, tables,
+    P))."""
+    import copy
+    from strawberry_tpu_torch.quant import device_prep
+    chunks = []
+    launch = device_prep.launch
+
+    def recording_launch(state, arrays, P):
+        # the first chunk of at least 100 device loci (a full 128-locus
+        # flush less its host-routed loci)
+        if not chunks and len(arrays["ni"]) >= 100:
+            chunks.append((copy.deepcopy(arrays), [
+                state.tables[k].cpu().numpy()
+                for k in device_prep._TABLES], P))
+        return launch(state, arrays, P)
+
+    runs = {}
+    device_prep.launch = recording_launch
+    try:
+        for mode in ("all", "budget"):
+            runs[mode] = r = run_cli(f"g_r_prep_{mode}", base,
+                                     {"STRAWB_DEVICE_PREP": mode})
+            stats = r.sample.prep_stats
+            require(body(r.out) == body(host.out),
+                    f"STRAWB_DEVICE_PREP={mode}: GTF body differs from the "
+                    "default's")
+            require(stats["device_loci"] > 0 and r.launches["quant_prep"] > 0,
+                    f"STRAWB_DEVICE_PREP={mode}: {stats}, "
+                    f"{r.launches['quant_prep']} prep launches")
+            require(r.launches["mcf_bucket"] == 0
+                    and r.launches["em_bucket"] == 0,
+                    f"STRAWB_DEVICE_PREP={mode}: other kernels launched: "
+                    f"{r.launches}")
+            log(f"  STRAWB_DEVICE_PREP={mode}: GTF body byte-identical to "
+                f"the default's")
+    finally:
+        device_prep.launch = launch
+    require(chunks, "STRAWB_DEVICE_PREP=all made no chunk of 100 loci")
+    return runs, chunks[0]
+
+
+def mcf_runs(gtf, bam, g_host):
+    """`-g` under STRAWB_DEVICE_MCF=1, against the same run with
+    STRAWB_FORCE_HOST=1 added (every flow on mincostflow.solve_dense): the
+    same GTF body, device problems and MCF launches. Returns ({name: Run},
+    {node bucket: the run's largest bucket as numpy arrays})."""
+    from strawberry_tpu_torch.assembly import device as adev
+    buckets = {}
+    mcf_bucket = adev.mcf_bucket
+
+    def recording_bucket(*args):
+        M = args[0].shape[1]
+        if M not in buckets or len(args[0]) > len(buckets[M][0]):
+            buckets[M] = args  # kept on the card; read after the run
+        return mcf_bucket(*args)
+
+    argv = ["-g", gtf, "--fr", bam]
+    adev.mcf_bucket = recording_bucket
+    try:
+        mcf = run_cli("g_mcf", argv, {"STRAWB_DEVICE_MCF": "1"})
+    finally:
+        adev.mcf_bucket = mcf_bucket
+    host = run_cli("g_mcf_force_host", argv, {"STRAWB_DEVICE_MCF": "1",
+                                             "STRAWB_FORCE_HOST": "1"})
+    fs = mcf.sample.flow_stats
+    require(fs.get("device", 0) > 0 and mcf.launches["mcf_bucket"] > 0,
+            f"STRAWB_DEVICE_MCF=1: {fs}, {mcf.launches['mcf_bucket']} MCF "
+            "launches")
+    require(host.sample.flow_stats.get("device", 1) == 0,
+            "STRAWB_FORCE_HOST=1 sent flow problems to the card")
+    require_no_launches(host, "STRAWB_DEVICE_MCF=1 STRAWB_FORCE_HOST=1")
+    require(body(mcf.out) == body(host.out),
+            "STRAWB_DEVICE_MCF=1: GTF body differs from the host solver's")
+    buckets = {M: [a.cpu().numpy() for a in b] for M, b in buckets.items()}
+    same = body(mcf.out) == body(g_host.out)
+    log(f"  STRAWB_DEVICE_MCF=1: GTF body byte-identical to the host "
+        f"solver's; to the default (lemon NetworkSimplex) run's: {same}")
+    return {"g_mcf": mcf, "g_mcf_force_host": host,
+            "mcf_same_as_default": same}, buckets
+
+
 def end_to_end(n_frags, dev):
     import numpy as np
-    from strawberry_tpu_torch.quant.cuda_em import em_bucket_cuda
 
     bam, gtf = realistic_set(n_frags)
     base = ["-g", gtf, "-r", "--fr", bam]
-    host_out, host_wall, hd, _, _ = run_cli("g_r_host", base, {})
-    require(hd.n_device == 0 and hd.n_host > 0,
+    host = run_cli("g_r_host", base, {})
+    require(host.d.n_device == 0 and host.d.n_host > 0,
             "default run must solve every EM on the host")
+    require_no_launches(host, "default -g -r")
 
-    em_bucket_cuda.launches = 0
-    fast_out, fast_wall, fd, fit, want = run_cli(
-        "g_r_fast_em", base + ["--fast-em"], {})
-    fast_launches = em_bucket_cuda.launches
+    fast = run_cli("g_r_fast_em", base + ["--fast-em"], {})
+    fast_launches = fast.launches["em_bucket"]
     require(fast_launches > 0, "--fast-em launched no kernel")
-    require(fd.n_device == fit,
-            f"--fast-em: {fd.n_device} EMs on the card, {fit} fit a tier")
-    require(fast_launches == want,
-            f"--fast-em: {fast_launches} launches, {want} expected")
+    require(fast.d.n_device == fast.fit,
+            f"--fast-em: {fast.d.n_device} EMs on the card, {fast.fit} fit "
+            "a tier")
+    require(fast_launches == fast.want,
+            f"--fast-em: {fast_launches} launches, {fast.want} expected")
 
-    ref = tpms(host_out)
-    fast = tpms(fast_out)
-    require(ref and set(fast) == set(ref),
+    ref = tpms(host.out)
+    fast_tpm = tpms(fast.out)
+    require(ref and set(fast_tpm) == set(ref),
             "--fast-em transcript set differs from the default's")
     a = np.array([ref[t] for t in sorted(ref)])
-    b = np.array([fast[t] for t in sorted(ref)])
+    b = np.array([fast_tpm[t] for t in sorted(ref)])
     require(np.isfinite(b).all(), "--fast-em TPM not finite")
     rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-12)
     p99 = float(np.percentile(rel, 99))
@@ -363,46 +783,76 @@ def end_to_end(n_frags, dev):
     require(p99 <= 1e-3, f"--fast-em TPM p99 rel err {p99} > 1e-3")
     prof = profiled_run("g_r_fast_em_profiled", base + ["--fast-em"])
 
-    em_bucket_cuda.launches = 0
-    dev_out, dev_wall, dd, dfit, dwant = run_cli(
-        "g_r_device_em", base, {"STRAWB_DEVICE_EM": "1"})
-    dev_launches = em_bucket_cuda.launches
-    require(dd.n_device == dfit and dev_launches == dwant > 0,
-            f"STRAWB_DEVICE_EM=1: {dd.n_device} on the card of {dfit}, "
-            f"{dev_launches} launches of {dwant}")
-    dev_same = body(dev_out) == body(host_out)
+    dev_em = run_cli("g_r_device_em", base, {"STRAWB_DEVICE_EM": "1"})
+    dev_launches = dev_em.launches["em_bucket"]
+    require(dev_em.d.n_device == dev_em.fit and dev_launches == dev_em.want
+            > 0, f"STRAWB_DEVICE_EM=1: {dev_em.d.n_device} on the card of "
+            f"{dev_em.fit}, {dev_launches} launches of {dev_em.want}")
+    dev_same = body(dev_em.out) == body(host.out)
     log(f"  STRAWB_DEVICE_EM=1 GTF body byte-identical to default: "
         f"{dev_same}")
-    dtp = tpms(dev_out)
-    require(set(dtp) == set(ref), "STRAWB_DEVICE_EM=1 transcript set "
-            "differs from the default's")
+    require(set(tpms(dev_em.out)) == set(ref), "STRAWB_DEVICE_EM=1 "
+            "transcript set differs from the default's")
 
-    em_bucket_cuda.launches = 0
-    g_out, g_wall, gd, gfit, gwant = run_cli(
-        "g_fast_em", ["-g", gtf, "--fr", "--fast-em", bam], {})
-    g_launches = em_bucket_cuda.launches
-    require(gd.n_device == gfit and g_launches == gwant > 0,
-            f"-g --fast-em: {gd.n_device} on the card of {gfit}, "
-            f"{g_launches} launches of {gwant}")
-    gt = tpms(g_out)
+    preps, prep_chunk = prep_runs(base, host)
+
+    g_host = run_cli("g_host", ["-g", gtf, "--fr", bam], {})
+    require_no_launches(g_host, "default -g")
+    mcfs, mcf_buckets = mcf_runs(gtf, bam, g_host)
+
+    prof_prep = profiled_run("g_r_prep_all_profiled", base,
+                             {"STRAWB_DEVICE_PREP": "all"})
+    prof_mcf = profiled_run("g_mcf_profiled", ["-g", gtf, "--fr", bam],
+                            {"STRAWB_DEVICE_MCF": "1"})
+
+    g = run_cli("g_fast_em", ["-g", gtf, "--fr", "--fast-em", bam], {})
+    g_launches = g.launches["em_bucket"]
+    require(g.d.n_device == g.fit and g_launches == g.want > 0,
+            f"-g --fast-em: {g.d.n_device} on the card of {g.fit}, "
+            f"{g_launches} launches of {g.want}")
+    gt = tpms(g.out)
     require(gt and all(math.isfinite(v) for v in gt.values()),
             "-g --fast-em produced no finite TPMs")
 
-    log("  the main path's own buckets (the first full one of each tier):")
+    log("  the main path's own inputs: the first full bucket of each EM "
+        "tier, the first full prep chunk, the largest bucket of each MCF "
+        "node size:")
     real = {"x".join(map(str, b[0].shape)):  # F's B x R x C
             compare_bucket(dev, b, f"main-path tier {t}")
-            for t, b in sorted(fd.buckets.items())}
+            for t, b in sorted(fast.d.buckets.items())}
     require(real, "--fast-em filled no tier bucket")
+    real_prep = compare_prep(dev, *prep_chunk, "main-path prep chunk")
+    real_mcf = {f"{b[0].shape[0]}x{M}x{M}": compare_mcf(
+        dev, b, f"main-path MCF bucket {M}") for M, b in
+        sorted(mcf_buckets.items())}
+    require(real_mcf, "STRAWB_DEVICE_MCF=1 launched no bucket")
 
-    return {"main_path_buckets": real, "profiled_fast_em": prof,
-            "walls_s": {"g_r_host": host_wall, "g_r_fast_em": fast_wall,
-                        "g_r_device_em": dev_wall, "g_fast_em": g_wall},
-            "em_split": {"g_r_fast_em": [fd.n_device, fd.n_host],
-                         "g_r_device_em": [dd.n_device, dd.n_host],
-                         "g_fast_em": [gd.n_device, gd.n_host]},
-            "launches": {"f32": fast_launches, "f64": dev_launches,
-                         "g_fast_em": g_launches},
-            "tpm_p99": p99, "device_em_byte_identical": dev_same}
+    return {"main_path_buckets": real, "main_path_prep_chunk": real_prep,
+            "main_path_mcf_buckets": real_mcf, "profiled_fast_em": prof,
+            "profiled_prep_all": prof_prep, "profiled_mcf": prof_mcf,
+            "walls_s": {"g_r_host": host.wall, "g_r_fast_em": fast.wall,
+                        "g_r_device_em": dev_em.wall,
+                        "g_r_prep_all": preps["all"].wall,
+                        "g_r_prep_budget": preps["budget"].wall,
+                        "g_host": g_host.wall, "g_mcf": mcfs["g_mcf"].wall,
+                        "g_mcf_force_host": mcfs["g_mcf_force_host"].wall,
+                        "g_fast_em": g.wall},
+            "em_split": {"g_r_fast_em": [fast.d.n_device, fast.d.n_host],
+                         "g_r_device_em": [dev_em.d.n_device,
+                                           dev_em.d.n_host],
+                         "g_fast_em": [g.d.n_device, g.d.n_host]},
+            "prep_stats": {m: r.sample.prep_stats for m, r in preps.items()},
+            "flow_stats": {k: mcfs[k].sample.flow_stats
+                           for k in ("g_mcf", "g_mcf_force_host")},
+            "launches": {"em_bucket_f32": fast_launches,
+                         "em_bucket_f64": dev_launches,
+                         "g_fast_em": g_launches,
+                         "quant_prep": preps["all"].launches["quant_prep"],
+                         "quant_prep_budget":
+                             preps["budget"].launches["quant_prep"],
+                         "mcf_bucket": mcfs["g_mcf"].launches["mcf_bucket"]},
+            "tpm_p99": p99, "device_em_byte_identical": dev_same,
+            "mcf_same_as_default": mcfs["mcf_same_as_default"]}
 
 
 def main():
@@ -414,30 +864,59 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(f"phase 1: {card}")
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda")
 
     log("phase 2: build")
+    import threading
+    from strawberry_tpu_torch.utils import kernels
+    built = {}
+
+    def build_kernels():
+        t0 = time.perf_counter()
+        try:
+            kernels.build_all(KERNELS)
+        except Exception as e:  # raised on the main thread below
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    nvcc = threading.Thread(target=build_kernels)
+    nvcc.start()  # nvcc runs while the host library builds
     t0 = time.perf_counter()
     from strawberry_tpu.io.native import get_lib
     get_lib()
     host_build = time.perf_counter() - t0
-    from strawberry_tpu_torch.utils import kernels
-    t0 = time.perf_counter()
-    kernels.load("em_bucket")
-    kernel_build = time.perf_counter() - t0
-    log(f"  host library {host_build:.1f} s, em_bucket kernel "
-        f"{kernel_build:.1f} s")
+    nvcc.join()
+    if "error" in built:
+        raise built["error"]
+    for name in KERNELS:
+        kernels.load(name)
+    log(f"  host library {host_build:.1f} s, kernels {built['s']:.1f} s "
+        f"({', '.join(KERNELS)}, in parallel)")
 
-    log("phase 3: kernel vs plain version at the four tier shapes")
+    log("phase 3: EM kernel vs plain version at the four tier shapes")
     rep = check_kernel(dev)
+
+    log("phase 3b: quant-prep kernels vs plain version, synthetic chunks")
+    prep = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "chunks": {}}
+    for seed in (7, 8):
+        r = compare_prep(dev, *synthetic_prep_chunk(seed),
+                         f"synthetic chunk {seed}")
+        prep["ms"] += r["ms"]
+        prep["plain_ms"] += r["plain_ms"]
+        prep["max_abs_err"] = max(prep["max_abs_err"], r["max_abs_err"])
+        prep["chunks"][f"synthetic_{seed}"] = r
+
+    log("phase 3c: MCF kernel vs plain version and solve_dense")
+    mcf = check_mcf(dev)
 
     log(f"phase 4: end to end, {args.n_frags} fragments")
     e2e = end_to_end(args.n_frags, dev)
     log("  " + json.dumps({k: v for k, v in e2e.items()
-                           if k != "main_path_buckets"}))
+                           if not k.startswith("main_path")}))
 
     src = "strawberry_tpu_torch/csrc/em_bucket.cu"
     replaces = {"f32": "strawberry_tpu/quant/pallas_em.py:34",
@@ -451,11 +930,26 @@ def main():
     kernels_line = {"kernels": [
         {"name": f"em_bucket_{dt}", "route": "cuda", "source": src,
          "replaces": replaces[dt], "tolerance": tolerance[dt],
-         "launches": e2e["launches"][dt],
+         "launches": e2e["launches"][f"em_bucket_{dt}"],
          **rep[dt], "main_path_buckets": {
              t: r[dt] for t, r in e2e["main_path_buckets"].items()}}
-        for dt in ("f32", "f64")]}
+        for dt in ("f32", "f64")] + [
+        {"name": "quant_prep", "route": "cuda",
+         "source": "strawberry_tpu_torch/csrc/quant_prep.cu",
+         "replaces": "strawberry_tpu/quant/device_prep.py:62",
+         "tolerance": "array-equal to the plain version (compat and rows); "
+                      "two runs identical",
+         "launches": e2e["launches"]["quant_prep"], **prep,
+         "main_path_chunk": e2e["main_path_prep_chunk"]},
+        {"name": "mcf_bucket", "route": "cuda",
+         "source": "strawberry_tpu_torch/csrc/mcf_bucket.cu",
+         "replaces": "strawberry_tpu/assembly/device.py:29",
+         "tolerance": "array-equal to the plain version and to "
+                      "mincostflow.solve_dense; two runs identical",
+         "launches": e2e["launches"]["mcf_bucket"], **mcf,
+         "main_path_buckets": e2e["main_path_mcf_buckets"]}]}
     shutil.rmtree(os.path.join(WORK, "out"), ignore_errors=True)
+    log(f"  smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

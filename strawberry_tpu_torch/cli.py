@@ -1,6 +1,8 @@
 """Command-line interface of the PyTorch/CUDA port: the same flags as
-strawberry_tpu.cli (its parser and config are reused), with the per-locus
-EM on the GPU under --fast-em or STRAWB_DEVICE_EM=1.
+strawberry_tpu.cli (its parser and config are reused), with the device
+work on the GPU: the per-locus EM under --fast-em or STRAWB_DEVICE_EM=1,
+pass-2 quant prep under STRAWB_DEVICE_PREP=all|budget, and the pass-1 flow
+solves under STRAWB_DEVICE_MCF=1.
 
     python -m strawberry_tpu_torch.cli -g ann.gtf [-r] [--fast-em] in.bam
 

@@ -1,15 +1,16 @@
-"""Two-pass pipeline driver with the per-locus EM on the GPU.
+"""Two-pass pipeline driver with the device work on the GPU.
 
 The counterpart of strawberry_tpu/pipeline.py. Everything on the main path
-except the EM dispatch is host code the two packages share: `TorchSample`
-inherits strawberry_tpu's `Sample` and overrides only the two methods
-whose originals import the JAX device modules.
+except the device dispatches is host code the two packages share:
+`TorchSample` inherits strawberry_tpu's `Sample` and overrides only the two
+methods whose originals import the JAX device modules.
 
-- `_assemble_batched` is the host NetworkSimplex branch of the original;
-  the batched device flow solve (STRAWB_DEVICE_MCF) is not ported yet.
-- `_quantify_batched` is the original with the EM dispatcher taken from
-  strawberry_tpu_torch.quant.device; device quant prep
-  (STRAWB_DEVICE_PREP) is not ported yet.
+- `_assemble_batched` solves the flow problems with the host
+  NetworkSimplex, or, under STRAWB_DEVICE_MCF, with the port's batched
+  min-cost flow (strawberry_tpu_torch.assembly.device).
+- `_quantify_batched` takes its EM dispatcher from
+  strawberry_tpu_torch.quant.device and, under STRAWB_DEVICE_PREP=all|budget,
+  its device quant prep from strawberry_tpu_torch.quant.device_prep.
 - `run_driver` is the original building a `TorchSample`; the forked `-p`
   workers and the STRAWB_TRACE_DIR profiler trace are not ported yet.
 
@@ -37,22 +38,20 @@ from strawberry_tpu.utils.profiling import GLOBAL as PROF
 
 
 class TorchSample(Sample):
-    """strawberry_tpu's Sample with the EM dispatched to the GPU."""
+    """strawberry_tpu's Sample with the device work dispatched to the
+    GPU."""
 
     def _assemble_batched(self, log: TextIO):
         """Pass 1: prepare each cluster's flow problems on host, solve
-        them with the lemon-exact NetworkSimplex, then finish in cluster
-        order (ids, naming, fragment-length learning).
+        them with the lemon-exact NetworkSimplex (or, under
+        STRAWB_DEVICE_MCF, as bucketed batches on the GPU), then finish in
+        cluster order (ids, naming, fragment-length learning).
 
         Work drains in chunks as the cluster stream produces them, so the
         resolve/solve/finish Python work overlaps the native clustering of
         later chromosomes."""
+        from .assembly.device import batched_mcf
         from strawberry_tpu.assembly.lemonns import network_simplex
-        if os.environ.get("STRAWB_DEVICE_MCF"):
-            raise NotImplementedError(
-                "STRAWB_DEVICE_MCF: the batched min-cost flow is not ported "
-                "to strawberry_tpu_torch yet (ROADMAP.md queue 1 item 6, "
-                "queue 2 item 4)")
         self.num_cluster = self.num_cluster_base
         collected = []
 
@@ -77,13 +76,22 @@ class TorchSample(Sample):
                     "native_ns", 0) + nsolved
             # GOLDEN path: the lemon-exact NetworkSimplex — degenerate
             # optima must land on the reference's flow (realistic loci hit
-            # equal-cost alternatives; see assembly/lemonns.py).
+            # equal-cost alternatives; see assembly/lemonns.py). The
+            # batched device solve (assembly/device.batched_mcf) finds A
+            # min-cost flow but not always lemon's on ties, so it is the
+            # opt-in path (STRAWB_DEVICE_MCF=1). With it set, the native
+            # prep workers ship the dense problems back unsolved
+            # (core/fastcluster.native_solve_enabled).
             with PROF.phase("flow_dp", items=len(tasks)):
-                flows_flat = [network_simplex(t.fn.g, t.cost_map,
-                                              t.min_flow_map)
-                              for t in tasks]
-                self.flow_stats["host_ns"] = self.flow_stats.get(
-                    "host_ns", 0) + len(tasks)
+                if os.environ.get("STRAWB_DEVICE_MCF"):
+                    flows_flat = batched_mcf([t.dense for t in tasks],
+                                             stats=self.flow_stats)
+                else:
+                    flows_flat = [network_simplex(t.fn.g, t.cost_map,
+                                                  t.min_flow_map)
+                                  for t in tasks]
+                    self.flow_stats["host_ns"] = self.flow_stats.get(
+                        "host_ns", 0) + len(tasks)
             flowmap = dict(zip(index, flows_flat))
             for ci, (cluster, units) in enumerate(collected):
                 flows = [flowmap.get((ci, ui))
@@ -110,12 +118,13 @@ class TorchSample(Sample):
     def _quantify_batched(self, log: TextIO,
                           fragfile: Optional[TextIO],
                           want_isoforms: bool = True) -> List[Isoform]:
-        """Device-batched pass 2: build locus contexts on host, solve every
-        locus EM as fixed-tier batched kernel launches on the GPU, then
-        finalize FPKM/filters in cluster order. EM batches launch the
-        moment they fill (launches are asynchronous), so the GPU solves EM
-        while the host is still streaming clusters and prepping the next
-        loci."""
+        """Device-batched pass 2: build locus contexts on host (or, under
+        STRAWB_DEVICE_PREP=all|budget, their integer half on the GPU),
+        solve every locus EM as fixed-tier batched kernel launches on the
+        GPU, then finalize FPKM/filters in cluster order. EM batches
+        launch the moment they fill (launches are asynchronous), so the
+        GPU solves EM while the host is still streaming clusters and
+        prepping the next loci."""
         from .quant.device import LocusProblem, EmDispatcher
         from strawberry_tpu.quant.fastlocus import build_prebuilt_locus
 
@@ -133,8 +142,12 @@ class TorchSample(Sample):
                     ref_flat = None
 
         # fused quant prep: the clustering workers compute each locus's EM
-        # inputs (quantprep.cc) as soon as its cluster is built.
+        # inputs (quantprep.cc) as soon as its cluster is built. With
+        # device prep enabled, the reads x isoforms integer kernels run on
+        # the GPU instead (quant/device_prep.py) and the clustering workers
+        # only cluster.
         fuse_quant = rexlen = None
+        prep_state = None
         if use_fast and ref_flat is not None:
             from strawberry_tpu.quant.binweights import pdf_table
             off, code, _left, lens = ref_flat
@@ -154,12 +167,16 @@ class TorchSample(Sample):
                     if self.insert_dist.use_emp else self.read_len
             prep_mode = self._use_device_prep()
             if prep_mode != "off":
-                raise NotImplementedError(
-                    f"device quant prep ({prep_mode!r}) is not ported to "
-                    "strawberry_tpu_torch yet (ROADMAP.md queue 1 item 5, "
-                    "queue 2 item 3)")
-            fuse_quant = (self.read_len, ref_flat, rexlen, tbl,
-                          base_lmin, self.long_read_sample)
+                from .quant.device_prep import PrepState
+                prep_state = PrepState(ref_flat, rexlen, tbl, base_lmin,
+                                       self.read_len, self.long_read_sample)
+                if prep_mode == "budget":
+                    prep_state.budget_pairs = int(os.environ.get(
+                        "STRAWB_PREP_BUDGET", "8192"))
+                self.prep_stats = prep_state.stats
+            else:
+                fuse_quant = (self.read_len, ref_flat, rexlen, tbl,
+                              base_lmin, self.long_read_sample)
         native_specs = []  # (index into pending, spec)
         # quantprep chunks run on a side thread (the native call releases
         # the GIL) so C++ bin/weight computation overlaps the cluster stream
@@ -189,8 +206,10 @@ class TorchSample(Sample):
                 futures[fut_drained] = None  # free the specs (pool views)
                 fut_drained += 1
 
+        dev_pool = dev_fut = None
+
         def _flush():
-            nonlocal chunk_start
+            nonlocal chunk_start, dev_pool, dev_fut
             chunk = native_specs[chunk_start:]
             if not chunk:
                 return
@@ -199,11 +218,50 @@ class TorchSample(Sample):
             # future drains, instead of for the whole pass)
             native_specs[chunk_start:] = [None] * len(chunk)
             chunk_start = len(native_specs)
-            from strawberry_tpu.quant.fastlocus import build_batch_native
-            futures.append((chunk, pool.submit(
-                build_batch_native, self.cfg, self.read_len,
-                self.insert_dist, [s[:4] for _, s in chunk],
-                long_read_sample=self.long_read_sample)))
+            if prep_state is not None and prep_state.budget_pairs is None:
+                # "all" mode: every eligible locus on the GPU
+                from .quant.device_prep import build_batch_device
+                futures.append((chunk, pool.submit(
+                    build_batch_device, self.cfg, self.read_len,
+                    self.insert_dist, [s for _, s in chunk], prep_state,
+                    self.long_read_sample)))
+                _drain_ready_futures()
+                return
+            if prep_state is not None and (dev_fut is None
+                                           or dev_fut.done()):
+                # self-pacing offload: carve one granule of (hit x iso)
+                # pairs for the GPU only when it is idle, so device prep
+                # runs concurrently with the host batches and never blocks
+                # the critical path
+                from .quant.device_prep import build_batch_device
+                granule = prep_state.budget_pairs
+                acc = 0
+                ndev = 0
+                for (_i, s) in chunk:
+                    p = (len(s[0][0]) - 1) * (len(s[4])
+                                              if s[4] is not None else 0)
+                    if ndev and acc + p > granule:
+                        break
+                    acc += p
+                    ndev += 1
+                dev_chunk, chunk = chunk[:ndev], chunk[ndev:]
+                if dev_chunk:
+                    if dev_pool is None:
+                        dev_pool = ThreadPoolExecutor(
+                            max_workers=1, thread_name_prefix="dev-prep")
+                    dev_fut = dev_pool.submit(
+                        build_batch_device, self.cfg, self.read_len,
+                        self.insert_dist, [s for _, s in dev_chunk],
+                        prep_state, self.long_read_sample)
+                    futures.append((dev_chunk, dev_fut))
+            if chunk:
+                from strawberry_tpu.quant.fastlocus import build_batch_native
+                if prep_state is not None:  # honest device_frac denominator
+                    prep_state.stats["host_loci"] += len(chunk)
+                futures.append((chunk, pool.submit(
+                    build_batch_native, self.cfg, self.read_len,
+                    self.insert_dist, [s[:4] for _, s in chunk],
+                    long_read_sample=self.long_read_sample)))
             _drain_ready_futures()
 
         # vectorized finalize: skip per-locus LocusContext/Isoform churn
@@ -295,6 +353,8 @@ class TorchSample(Sample):
                 _drain_ready_futures(block=True)
         if pool is not None:
             pool.shutdown(wait=False)
+        if dev_pool is not None:
+            dev_pool.shutdown(wait=False)
 
         _flush_raw()
         with PROF.phase("em_finish", items=len(pending)):

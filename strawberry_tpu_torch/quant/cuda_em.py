@@ -20,10 +20,9 @@ from __future__ import annotations
 import ctypes as C
 from typing import Tuple
 
-import numpy as np
 import torch
 
-from ..utils import torchsetup  # noqa: F401  (full-f32 matmuls)
+from ..utils.torchsetup import to_device  # also sets full-f32 matmuls
 
 MAX_ITER = 1000
 THETA_CHANGE_LIMIT = 1e-2
@@ -37,18 +36,11 @@ def bucket_to_torch(F, u, theta0, valid, active, device, dtype
     active (B,)) -> contiguous tensors on `device`: the floats in `dtype`,
     the masks as bool. The system has no other state to carry across.
 
-    A copy to the GPU goes through pinned memory and does not block: a
-    blocking copy waits for every kernel queued before it on the stream,
-    which would make each bucket wait for the previous buckets' EM."""
-    device = torch.device(device)
-
-    def t(a, dt):
-        h = torch.from_numpy(np.ascontiguousarray(a)).to(dt)
-        if device.type == "cpu":
-            return h
-        return h.pin_memory().to(device, non_blocking=True)
-    return (t(F, dtype), t(u, dtype), t(theta0, dtype),
-            t(valid, torch.bool), t(active, torch.bool))
+    A copy to the GPU does not block (torchsetup.to_device), so a bucket
+    never waits for the previous buckets' EM."""
+    return tuple(to_device(a, device, dt) for a, dt in (
+        (F, dtype), (u, dtype), (theta0, dtype), (valid, torch.bool),
+        (active, torch.bool)))
 
 
 def em_bucket_reference(F_raw, u, theta0, valid, active):

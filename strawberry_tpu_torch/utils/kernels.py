@@ -36,23 +36,46 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless the library for this exact source and
-    these flags exists; return the library's path."""
+def _target(name: str):
+    """(source path, library path) of csrc/<name>.cu; the library's name
+    carries a hash of the source and the flags."""
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build_all(names) -> Dict[str, str]:
+    """Compile csrc/<name>.cu for every name whose library for this exact
+    source and these flags does not exist, one nvcc process per source,
+    all started together; return {name: library path}."""
+    libs, procs = {}, []
+    for name in names:
+        src, lib = libs[name] = _target(name)
+        if os.path.exists(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs.append((src, lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, lib, tmp, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src}:\n{err}")
+        else:
+            os.replace(tmp, lib)  # atomic: no one sees half a file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: lib for name, (_src, lib) in libs.items()}
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless the library for this exact source and
+    these flags exists; return the library's path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> C.CDLL:

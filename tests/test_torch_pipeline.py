@@ -1,7 +1,8 @@
 """The port's CLI (python -m strawberry_tpu_torch.cli) against the JAX
 package's on small simulated sets, in subprocesses: byte-identical GTF
 bodies and -T logs in the default modes, --fast-em (the plain f32 EM on
-the CPU) within a TPM tolerance, and a run with jax blocked from import.
+the CPU) within a TPM tolerance, and runs with jax blocked from import,
+among them one through the device prep and flow routes.
 The port's subprocesses block jax throughout (this process imports it in
 conftest.py)."""
 import json
@@ -25,15 +26,21 @@ DATASETS = {"paired": (dict(seed=9, paired=True), "--fr"),
 MODES = {"g": ["-g", "{gtf}"], "g_r": ["-g", "{gtf}", "-r"], "abinitio": []}
 
 # Runs every argv of the list through <package>.cli.main in one process and
-# prints the exit codes as JSON. BLOCK_JAX=1 makes `import jax` fail.
+# prints the exit codes, each run's flow-solve and prep counts, and whether
+# jax was imported, as JSON. BLOCK_JAX=1 makes `import jax` fail.
 _RUNNER = """
 import json, os, sys
 if os.environ.get("BLOCK_JAX"):
     sys.modules["jax"] = None
 import importlib
-main = importlib.import_module(sys.argv[1] + ".cli").main
-rcs = [main(argv) for argv in json.loads(sys.argv[2])]
-print(json.dumps({"rcs": rcs, "jax": sys.modules.get("jax") is not None}))
+cli = importlib.import_module(sys.argv[1] + ".cli")
+samples = []
+run = cli.run_driver
+cli.run_driver = lambda *a, **k: samples.append(run(*a, **k)) or samples[-1]
+rcs = [cli.main(argv) for argv in json.loads(sys.argv[2])]
+print(json.dumps({"rcs": rcs, "jax": sys.modules.get("jax") is not None,
+                  "stats": [[s.flow_stats, getattr(s, "prep_stats", {})]
+                            for s in samples]}))
 """
 
 
@@ -138,6 +145,27 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert body(out).count("\ttranscript\t") > 0
 
 
+def test_port_device_routes_run_with_jax_blocked(tmp_path):
+    """STRAWB_DEVICE_MCF=1 (pass 1) and STRAWB_DEVICE_PREP=all (pass 2) in
+    one `-g` run of the port with jax blocked, through the plain versions
+    on the CPU: the GTF body of the JAX CLI under the same settings."""
+    bam, gtf, _ = make_dataset(str(tmp_path / "d"), seed=5, n_frags=1500)
+    env = dict(STRAWB_DEVICE_MCF="1", STRAWB_DEVICE_PREP="all")
+    outs = {}
+    for pkg in ("strawberry_tpu", "strawberry_tpu_torch"):
+        outs[pkg] = str(tmp_path / f"{pkg}.gtf")
+        res = run_cli(pkg, [["-g", gtf, "-o", outs[pkg], "-T",
+                             outs[pkg] + ".log", bam]],
+                      block_jax=pkg == "strawberry_tpu_torch", **env)
+    assert res["jax"] is False
+    [[flow_stats, prep_stats]] = res["stats"]
+    assert flow_stats["device"] > 0, flow_stats
+    assert prep_stats["device_loci"] > 0, prep_stats
+    assert body(outs["strawberry_tpu"]).count("\ttranscript\t") > 0
+    assert body(outs["strawberry_tpu_torch"]) == body(
+        outs["strawberry_tpu"])
+
+
 def test_port_refuses_unported_launches(tmp_path):
     env = dict(os.environ, STRAWB_PLATFORM="cpu")
     bam = str(tmp_path / "missing.bam")
@@ -174,10 +202,8 @@ print(json.dumps(msgs))
 
 
 def test_port_refuses_unported_paths(tmp_path):
-    bam, gtf, _ = make_dataset(str(tmp_path / "d"), seed=6, n_frags=800)
-    cases = [(["-p", "2"], {}), ([], {"STRAWB_TRACE_DIR": str(tmp_path)}),
-             ([], {"STRAWB_DEVICE_MCF": "1"}),
-             (["-g", gtf, "-r"], {"STRAWB_DEVICE_PREP": "all"})]
+    bam, _gtf, _ = make_dataset(str(tmp_path / "d"), seed=6, n_frags=800)
+    cases = [(["-p", "2"], {}), ([], {"STRAWB_TRACE_DIR": str(tmp_path)})]
     runs = [(a + ["-o", str(tmp_path / f"o{i}.gtf"), "-T",
                   str(tmp_path / f"o{i}.log"), bam], e)
             for i, (a, e) in enumerate(cases)]
