@@ -40,7 +40,7 @@ def batched_mcf(problems: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     the port's default is 0 (every problem that fits a bucket goes to the
     device) until an H100 crossover sets it. Returns the per-problem flow
     matrix, or None where the problem is infeasible."""
-    from strawberry_tpu.assembly.mincostflow import solve_dense
+    from .mincostflow import solve_dense
     if os.environ.get("STRAWB_FORCE_HOST"):
         device_min_nodes = 1 << 30
     results: List[Optional[np.ndarray]] = [None] * len(problems)

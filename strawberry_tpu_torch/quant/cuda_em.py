@@ -7,9 +7,11 @@ kernel behind --fast-em) and of strawberry_tpu/quant/device.py::_em_bucket
 float and double, serves both; it also returns `failed`.
 
 - `em_bucket_cuda`: the kernel's wrapper (CUDA tensors only).
+- `em_bucket_plan`: the launch the kernel picks for a bucket shape (which
+  kernel, CTAs a locus, shared memory), for the chip smoke's report.
 - `em_bucket_reference`: the plain PyTorch version, a masked loop like
   `_em_bucket`; the CPU tests run it, and the chip smoke holds the kernel
-  against it.
+  against it. It can also count each locus' iterations.
 - `em_bucket`: the plain version for CPU tensors, the kernel for CUDA
   tensors. It never falls back from one to the other.
 - `bucket_to_torch`: the numpy bucket arrays the dispatcher pads into
@@ -43,8 +45,11 @@ def bucket_to_torch(F, u, theta0, valid, active, device, dtype
         (active, torch.bool)))
 
 
-def em_bucket_reference(F_raw, u, theta0, valid, active):
-    """Plain PyTorch batched EM; returns (theta (B,C), failed (B,)).
+def em_bucket_reference(F_raw, u, theta0, valid, active, iterations=False):
+    """Plain PyTorch batched EM; returns (theta (B,C), failed (B,)), and
+    with `iterations` also each locus' count of E+M steps (B,) int64: the
+    step that converged or failed included, at most MAX_ITER, 0 for an
+    inactive locus.
 
     Iteration 1 runs on the raw weights, later ones on the once-normalized
     F; convergence keeps the previous theta; a zero denominator on a valid
@@ -68,12 +73,14 @@ def em_bucket_reference(F_raw, u, theta0, valid, active):
         return theta, done | converged | newly_failed, failed | newly_failed
 
     failed = torch.zeros_like(active)
+    steps = active.to(torch.int64)
     theta, done, failed = step_once(F_raw, theta0, ~active, failed)
     it = 1
     while it < MAX_ITER and not bool(done.all()):
+        steps += ~done
         theta, done, failed = step_once(F_norm, theta, done, failed)
         it += 1
-    return theta, failed
+    return (theta, failed, steps) if iterations else (theta, failed)
 
 
 def _check(F, u, theta0, valid, active):
@@ -128,6 +135,28 @@ def em_bucket_cuda(F_raw, u, theta0, valid, active):
 
 
 em_bucket_cuda.launches = 0
+
+PLAN_FIELDS = ("kernel", "ctas", "threads", "ctas_per_locus", "rows_per_cta",
+               "smem_bytes", "max_active_clusters")
+
+
+def em_bucket_plan(B, R, cols, dtype):
+    """The launch csrc/em_bucket.cu makes for a (B,R,cols) bucket of `dtype`,
+    as a dict: kernel ("warp" for tiers 0-1, "rows" for tier 2, "strip"
+    for tier 3), CTAs, threads a CTA, CTAs a locus (the cluster size),
+    rows a CTA, dynamic shared memory, and how many such clusters the card
+    holds at once. Needs a GPU."""
+    from ..utils import kernels
+    lib = kernels.load("em_bucket")
+    fn = lib.strawb_em_bucket_plan
+    fn.restype = C.c_int
+    fn.argtypes = [C.c_int] * 4 + [C.POINTER(C.c_int)]
+    out = (C.c_int * len(PLAN_FIELDS))()
+    kernels.check(lib, fn(torch.empty((), dtype=dtype).element_size(), B, R,
+                          cols, out), "em_bucket plan")
+    plan = dict(zip(PLAN_FIELDS, out))
+    plan["kernel"] = ("warp", "rows", "strip")[plan["kernel"]]
+    return plan
 
 
 def em_bucket(F_raw, u, theta0, valid, active):

@@ -116,7 +116,7 @@ class EmDispatcher:
         self._launched.append((theta.to("cpu", non_blocking=True), items))
 
     def finish(self) -> List[Optional[np.ndarray]]:
-        from strawberry_tpu.utils.profiling import GLOBAL as PROF
+        from ..utils.profiling import GLOBAL as PROF
         for t in range(len(_TIERS)):
             if self._fills[t]:
                 self._launch(t)
@@ -173,7 +173,7 @@ def _get_native_em():
     if _native_em is None:
         try:
             import ctypes as C
-            from strawberry_tpu.io.native import get_lib
+            from ..io.native import get_lib
             lib = get_lib()
             P64 = C.POINTER(C.c_int64)
             PD = C.POINTER(C.c_double)
@@ -194,7 +194,7 @@ def _get_native_em_raw():
     if _native_em_raw is None:
         try:
             import ctypes as C
-            from strawberry_tpu.io.native import get_lib
+            from ..io.native import get_lib
             lib = get_lib()
             P64 = C.POINTER(C.c_int64)
             PD = C.POINTER(C.c_double)
@@ -253,7 +253,7 @@ def _host_em_batch(items, results):
     import ctypes as C
     fn = _get_native_em()
     if not fn:
-        from strawberry_tpu.quant.em import em_run
+        from .em import em_run
         for (idx, uu, FF, total, niso) in items:
             # rows here are already >1e-5-filtered; theta0 uses the
             # unfiltered count total, as EmSolver::init does

@@ -70,7 +70,7 @@ def _bind(lib):
     global _bound
     if _bound:
         return lib
-    from strawberry_tpu.quant.fastlocus import _bind_quant
+    from .fastlocus import _bind_quant
     _bind_quant(lib)  # strawb_quant_{binoff,counts,...} accessors
     P64 = C.POINTER(C.c_int64)
     P8 = C.POINTER(C.c_int8)
@@ -137,10 +137,8 @@ def isoform_tables(ref_flat):
 
 
 def tables_to_torch(exl, exr, nex, inl, inn, device) -> dict:
-    """The isoform tables as contiguous int32 tensors on `device`, keyed as
-    the kernels' inputs. Takes the numpy tables of either package: those of
-    `isoform_tables`, or np.asarray of a JAX PrepState's d_exl, d_exr,
-    d_nex, d_inl, d_inn."""
+    """The isoform tables (numpy, as `isoform_tables` gives them) as
+    contiguous int32 tensors on `device`, keyed as the kernels' inputs."""
     return {k: torch.from_numpy(np.array(a, np.int32)).to(device)
             for k, a in zip(_TABLES, (exl, exr, nex, inl, inn))}
 
@@ -247,8 +245,8 @@ def build_batch_device(cfg, read_len, insert_dist, specs, state: PrepState,
     caps route to the host batch, which runs while the device kernels do;
     everything else runs the integer kernels on the device and the f64
     finish on the host. Bit-identical to the all-host path."""
-    from strawberry_tpu.io.native import get_lib
-    from strawberry_tpu.quant.fastlocus import build_batch_native
+    from ..io.native import get_lib
+    from .fastlocus import build_batch_native
     lib = _bind(get_lib())
 
     nloc = len(specs)
@@ -394,7 +392,7 @@ def _dispatch_device(cfg, read_len, insert_dist, specs, dev_ids,
     closure that waits for the results and runs the host f64 finish.
     The caller runs the host batch between dispatch and fetch so the
     device and the host cores work concurrently."""
-    from strawberry_tpu.quant.fastlocus import _concat_flats
+    from .fastlocus import _concat_flats
     dspecs = [specs[i] for i in dev_ids]
     hit_loc, h_off, h_code, h_left, h_len = _concat_flats(
         [s[0] for s in dspecs])
@@ -439,7 +437,7 @@ def _dispatch_device(cfg, read_len, insert_dist, specs, dev_ids,
             state.read_len, state.base_lmin,
             1 if (long_read_sample or state.long_read) else 0)
         try:
-            from strawberry_tpu.quant.fastlocus import build_prebuilt_locus
+            from .fastlocus import build_prebuilt_locus
             total_b = lib.strawb_quant_total_bins(q)
             total_a = lib.strawb_quant_total_alpha(q)
 

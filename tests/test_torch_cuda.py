@@ -1,5 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions: the
-EM (csrc/em_bucket.cu) at the four tier shapes, quant prep
+EM (csrc/em_bucket.cu) at the four tier shapes and the specialization each
+gets (one warp a locus at tiers 0-1, one CTA with F in registers at tier 2,
+a thread block cluster at tier 3), on edge-case buckets and at odd shapes
+on either side of each specialization's limits, with f64 bit-identical
+across runs; quant prep
 (csrc/quant_prep.cu) on seeded synthetic chunks, and the min-cost flow
 (csrc/mcf_bucket.cu) at the three node buckets. Needs an NVIDIA GPU and
 nvcc; skips elsewhere. This file imports no jax, so on a machine without jax it
@@ -17,14 +21,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (infeasible_problem, pad_mcf_bucket, prep_inputs,
-                        random_bucket, random_cmpc_problem,
+                        random_bucket, random_cmpc_problem, special_bucket,
                         synthetic_prep_chunk)
 from strawberry_tpu.assembly.mincostflow import solve_dense
 from strawberry_tpu.quant.em import em_run
 from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_bucket_cuda,
                                                     mcf_bucket_reference)
-from strawberry_tpu_torch.quant.cuda_em import (bucket_to_torch,
+from strawberry_tpu_torch.quant.cuda_em import (MAX_ITER, bucket_to_torch,
                                                 em_bucket_cuda,
+                                                em_bucket_plan,
                                                 em_bucket_reference)
 from strawberry_tpu_torch.quant.cuda_prep import (quant_prep_cuda,
                                                   quant_prep_reference)
@@ -67,8 +72,8 @@ def test_kernel_f64_matches_plain_and_oracle(tier, cuda_device):
 def test_kernel_f32_meets_pallas_bars(tier, cuda_device):
     R, C, B = _TIERS[tier]
     bucket = random_bucket(np.random.default_rng(tier), B, R, C)
-    th32, _ = em_bucket_cuda(*bucket_to_torch(*bucket, cuda_device,
-                                              torch.float32))
+    a32 = bucket_to_torch(*bucket, cuda_device, torch.float32)
+    th32, _ = em_bucket_cuda(*a32)
     th64, _ = em_bucket_reference(*bucket_to_torch(*bucket, cuda_device,
                                                    torch.float64))
     th32, th64 = th32.cpu().numpy(), th64.cpu().numpy()
@@ -77,8 +82,108 @@ def test_kernel_f32_meets_pallas_bars(tier, cuda_device):
     # the bars of test_pallas_em.py (f32 convergence-boundary wobble)
     assert np.median(rel) < 1e-4
     assert (rel < 0.1).mean() > 0.95
+    assert_uncapped_close(th32, a32)
     np.testing.assert_array_equal(th32[-2:],
                                   bucket[2][-2:].astype(np.float32))
+
+
+def assert_uncapped_close(th32, a32):
+    """Every active locus that the f32 plain version stops before the
+    iteration cap is within 5e-2 relative of it: the Pallas bars alone
+    would pass a few wrong loci. (Such a locus may stop an iteration apart
+    in another summation order; the f32 and f64 plain versions differ by
+    up to 1.2e-2 relative there.)"""
+    ref, _, iters = em_bucket_reference(*a32, iterations=True)
+    ref = ref.cpu().numpy()
+    uncapped = ((iters < MAX_ITER) & a32[4]).cpu().numpy()
+    rel = np.abs(th32 - ref) / np.maximum(1.0, np.abs(ref))
+    assert (rel[uncapped] < 5e-2).all(), rel[uncapped].max()
+
+
+def assert_kernel_matches_plain(bucket, device):
+    """f64: within 1e-9 of the plain version, the same failed flags, and
+    two runs bit-identical; f32: the Pallas bars against the f64 plain
+    version, loci under the cap close to the f32 plain version, inactive
+    loci exactly theta0."""
+    theta0, active = bucket[2], bucket[4]
+    a64 = bucket_to_torch(*bucket, device, torch.float64)
+    th, failed = em_bucket_cuda(*a64)
+    th2, failed2 = em_bucket_cuda(*a64)
+    th_r, failed_r = em_bucket_reference(*a64)
+    torch.testing.assert_close(th, th_r, rtol=1e-9, atol=1e-9)
+    assert torch.equal(failed, failed_r)
+    assert torch.equal(th, th2) and torch.equal(failed, failed2)
+    a32 = bucket_to_torch(*bucket, device, torch.float32)
+    th32 = em_bucket_cuda(*a32)[0].cpu().numpy()
+    ref = th_r.cpu().numpy()
+    rel = np.abs(th32 - ref) / np.maximum(1.0, np.abs(ref))
+    assert np.median(rel) < 1e-4 and (rel < 0.1).mean() > 0.95
+    assert_uncapped_close(th32, a32)
+    np.testing.assert_array_equal(th32[~active],
+                                  theta0[~active].astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,kernel", [(0, "warp"), (1, "warp"),
+                                         (2, "rows"), (3, "strip")])
+def test_kernel_specialization_per_tier(tier, kernel, cuda_device):
+    """Each tier's launch plan, and the edge cases (iteration cap, a zero
+    column with nonzero theta0, a non-prefix valid mask) through it."""
+    R, C, B = _TIERS[tier]
+    for dt in (torch.float32, torch.float64):
+        plan = em_bucket_plan(B, R, C, dt)
+        assert plan["kernel"] == kernel
+        if kernel == "strip":  # a cluster of 16 CTAs a locus
+            assert plan["ctas_per_locus"] == 16
+            assert plan["ctas"] == B * 16
+    assert_kernel_matches_plain(special_bucket(R, C), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 32, 4), (6, 128, 8), (3, 129, 8),
+                                   (4, 128, 9), (5, 300, 20), (4, 512, 31),
+                                   (4, 513, 32), (4, 700, 50),
+                                   (3, 3000, 130)])
+def test_kernel_odd_shapes(shape, cuda_device):
+    """Shapes on either side of each specialization's limits."""
+    assert_kernel_matches_plain(
+        random_bucket(np.random.default_rng(sum(shape)), *shape),
+        cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [4, 8, 12, 16, 24])
+def test_kernel_narrow_column_extent(cols, cuda_device):
+    """Tier 2's bucket with every locus cut to its first `cols` columns:
+    the tier-2 kernel's M-step over 8, 16 or 32 columns, against the plain
+    version and, where invalid rows carry no weight, em_run."""
+    R, C, B = _TIERS[2]
+    F, u, theta0, valid, active = random_bucket(
+        np.random.default_rng(cols), B, R, C)
+    F[:, :, cols:] = 0.0
+    theta0[:, cols:] = 0.0
+    valid = (F > 1e-5).any(axis=2)
+    bucket = (F, u, theta0, valid, active)
+    assert_kernel_matches_plain(bucket, cuda_device)
+    th = em_bucket_cuda(*bucket_to_torch(*bucket, cuda_device,
+                                         torch.float64))[0].cpu().numpy()
+    for b in np.flatnonzero(active):
+        if F[b][~valid[b]].any():
+            continue
+        host = em_run(u[b, valid[b]], F[b, valid[b]], theta0[b])
+        host = theta0[b] if host is None else host
+        np.testing.assert_allclose(th[b], host, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_strips_past_shared_memory(cuda_device):
+    """4096 x 128 in f64 needs 256 rows a CTA even at 16 CTAs, more than
+    one CTA's shared memory: the launch is refused, not run another way.
+    The same shape fits in f32."""
+    bucket = random_bucket(np.random.default_rng(5), 2, 4096, 128)
+    with pytest.raises(RuntimeError):
+        em_bucket_cuda(*bucket_to_torch(*bucket, cuda_device, torch.float64))
+    assert em_bucket_plan(2, 4096, 128, torch.float32)["ctas_per_locus"] == 16
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 
-from chip_smoke import random_bucket
+from chip_smoke import random_bucket, special_bucket
 from strawberry_tpu.quant.device import _em_bucket
 from strawberry_tpu.quant.em import em_init, em_run
 from strawberry_tpu.quant.pallas_em import em_bucket_pallas
@@ -219,3 +219,124 @@ def test_cuda_platform_without_gpu_raises(monkeypatch):
     monkeypatch.setenv("STRAWB_PLATFORM", "tpu")
     with pytest.raises(ValueError, match="STRAWB_PLATFORM"):
         EmDispatcher(fast_em=True)
+
+
+# ---- the rules the redesigned kernel relies on, held on the CPU through
+# the JAX programs (`_em_bucket` in f64, the Pallas kernel in interpret
+# mode in f32) and the port's plain version
+
+def numpy_em(F, u, theta0, valid):
+    """Plain-numpy EM of one locus, written out from the semantics: returns
+    (theta, failed, E+M steps taken)."""
+    colsum = F.sum(axis=0)
+    Fn = np.where(colsum != 0, F / np.where(colsum == 0, 1.0, colsum), 0.0)
+    theta = theta0.copy()
+    for it in range(1000):
+        Fi = F if it == 0 else Fn
+        denom = Fi @ theta
+        if (valid & (denom == 0)).any():
+            return theta0.copy(), True, it + 1
+        U = u[:, None] * Fi * theta[None, :] / np.where(
+            denom == 0, 1.0, denom)[:, None]
+        nxt = np.where(valid[:, None], U, 0.0).sum(axis=0)
+        if np.sqrt(((nxt - theta) ** 2).sum()) < 1e-2:
+            return theta, False, it + 1
+        theta = nxt
+    return theta, False, 1000
+
+
+def jax_em(bucket, f32=False):
+    if f32:
+        return np.asarray(em_bucket_pallas(*bucket, interpret=True))
+    th, _failed = _em_bucket(*[jnp.asarray(a) for a in bucket])
+    return np.asarray(th)
+
+
+def test_iteration_counts_match_numpy_count():
+    bucket = special_bucket()
+    F, u, theta0, valid, active = bucket
+    th, failed, steps = em_bucket_reference(
+        *bucket_to_torch(*bucket, "cpu", torch.float64), iterations=True)
+    assert steps[0] == 1000 and steps[-1] == 0
+    for b in np.flatnonzero(active):
+        th_n, failed_n, steps_n = numpy_em(F[b], u[b], theta0[b], valid[b])
+        assert int(steps[b]) == steps_n, b
+        assert bool(failed[b]) == failed_n
+        np.testing.assert_allclose(th[b].numpy(), th_n, rtol=1e-9, atol=1e-9)
+    rng = np.random.default_rng(12)
+    rb = random_bucket(rng, 12, 64, 8)
+    _th, failed, steps = em_bucket_reference(
+        *bucket_to_torch(*rb, "cpu", torch.float64), iterations=True)
+    want = [numpy_em(rb[0][b], rb[1][b], rb[2][b], rb[3][b])[2]
+            if rb[4][b] else 0 for b in range(12)]
+    assert steps.tolist() == want and failed[0]
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_special_loci_match_jax(f32):
+    """The cap, the zero column with nonzero theta0 and the non-prefix
+    valid mask through the JAX program and the plain version."""
+    bucket = special_bucket()
+    dt = torch.float32 if f32 else torch.float64
+    th_t = em_bucket_reference(*bucket_to_torch(*bucket, "cpu", dt))[0]
+    th_j = jax_em(bucket, f32)
+    if f32:
+        rel = np.abs(th_t.numpy() - th_j) / np.maximum(1.0, np.abs(th_j))
+        assert np.median(rel) < 1e-4 and (rel < 0.1).mean() > 0.95
+    else:
+        np.testing.assert_allclose(th_t.numpy(), th_j, rtol=1e-9, atol=1e-9)
+    th = th_t.numpy()
+    # the columns with zero F but nonzero theta0 moved theta (to 0): a
+    # kernel that cut them off with F's extent would keep theta0 there
+    assert bucket[2][1, 1] != 0 and bucket[2][1, -1] != 0
+    assert th[1, 1] == 0 and th[1, -1] == 0
+    np.testing.assert_array_equal(th[-1], bucket[2][-1].astype(th.dtype))
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_extent_rule_padding_changes_nothing(f32):
+    """A padded bucket and the same loci cut to their extents (rows to the
+    last valid or weighted row, columns to the last column where F or
+    theta0 is nonzero) give the same theta, in the JAX programs and in the
+    plain version."""
+    F, u, theta0, valid, active = special_bucket()
+    keep_r = (valid | (F != 0).any(axis=2)).any(axis=0)
+    keep_c = ((F != 0).any(axis=1) | (theta0 != 0)).any(axis=0)
+    R_ext = int(np.flatnonzero(keep_r).max()) + 1
+    C_ext = int(np.flatnonzero(keep_c).max()) + 1
+    assert (R_ext, C_ext) != F.shape[1:]
+    cut = (F[:, :R_ext, :C_ext], u[:, :R_ext], theta0[:, :C_ext],
+           valid[:, :R_ext], active)
+    # pad beyond the tier too: more rows and columns of exact zeros
+    pad = (np.pad(F, ((0, 0), (0, 64), (0, 8))), np.pad(u, ((0, 0), (0, 64))),
+           np.pad(theta0, ((0, 0), (0, 8))), np.pad(valid, ((0, 0), (0, 64))),
+           active)
+    dt = torch.float32 if f32 else torch.float64
+    ref_cut = em_bucket_reference(*bucket_to_torch(*cut, "cpu", dt))[0]
+    ref_pad = em_bucket_reference(*bucket_to_torch(*pad, "cpu", dt))[0]
+    np.testing.assert_allclose(ref_pad[:, :C_ext].numpy(), ref_cut.numpy(),
+                               rtol=1e-6 if f32 else 1e-12, atol=0)
+    assert not ref_pad[:, C_ext:].any()
+    # the Pallas kernel sums over its padded tile in another order; over
+    # the capped locus' 1,000 f32 iterations that moves theta by ~1e-4
+    j_cut, j_pad = jax_em(cut, f32), jax_em(pad, f32)
+    np.testing.assert_allclose(j_pad[:, :C_ext], j_cut,
+                               rtol=2e-4 if f32 else 1e-12, atol=0)
+
+
+@pytest.mark.parametrize("tier", range(len(_TIERS)))
+def test_special_bucket_at_tier_shapes(tier):
+    """The edge-case bucket at each tier's shape, where the kernel picks
+    another specialization: the plain version's theta, failed flags and
+    iteration counts against the plain-numpy EM, locus by locus."""
+    R, C, _B = _TIERS[tier]
+    bucket = special_bucket(R, C)
+    F, u, theta0, valid, active = bucket
+    th, failed, steps = em_bucket_reference(
+        *bucket_to_torch(*bucket, "cpu", torch.float64), iterations=True)
+    assert steps[0] == 1000 and steps[-1] == 0
+    for b in np.flatnonzero(active):
+        th_n, failed_n, steps_n = numpy_em(F[b], u[b], theta0[b], valid[b])
+        assert (int(steps[b]), bool(failed[b])) == (steps_n, failed_n), b
+        np.testing.assert_allclose(th[b].numpy(), th_n, rtol=1e-9, atol=1e-9)
+    np.testing.assert_array_equal(th[-1].numpy(), theta0[-1])

@@ -21,11 +21,12 @@ from chip_smoke import (infeasible_problem, pad_mcf_bucket,
                         random_cmpc_problem)
 from strawberry_tpu.assembly.device import _mcf_bucket
 from strawberry_tpu.assembly.mincostflow import solve_dense
-from strawberry_tpu.config import Config
+from strawberry_tpu.config import Config as JaxConfig
 from strawberry_tpu.sim import make_dataset
 from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_bucket,
                                                     mcf_bucket_reference)
 from strawberry_tpu_torch.assembly.device import batched_mcf
+from strawberry_tpu_torch.config import Config
 from test_torch_pipeline import body, run_cli
 
 
@@ -121,21 +122,21 @@ def test_device_mcf_matches_native_default_on_tie_free_set(tmp_path,
     """test_native_solve_paths.py's tie-free set: the port's
     STRAWB_DEVICE_MCF=1 run (every flow through the plain bucket) gives
     the JAX package's native default byte for byte."""
-    from strawberry_tpu.pipeline import _NullLog
+    from strawberry_tpu.pipeline import _NullLog as JaxNullLog
     from strawberry_tpu.pipeline import run_driver as jax_run_driver
-    from strawberry_tpu_torch.pipeline import run_driver
+    from strawberry_tpu_torch.pipeline import _NullLog, run_driver
     d = str(tmp_path / "ds")
     make_dataset(d, seed=11, n_frags=8000, n_chroms=2, max_isoforms=2)
     bam = f"{d}/sample_01.sorted.bam"
     gtf = f"{d}/annotation.gtf"
 
-    def cfg():
-        return Config(ref_gtf_filename=gtf, utilize_ref_models=True)
+    def cfg(config):
+        return config(ref_gtf_filename=gtf, utilize_ref_models=True)
     native = io.StringIO()
-    jax_run_driver(bam, cfg(), native, _NullLog())
+    jax_run_driver(bam, cfg(JaxConfig), native, JaxNullLog())
     cpu_platform.setenv("STRAWB_DEVICE_MCF", "1")
     device = io.StringIO()
-    sample = run_driver(bam, cfg(), device, _NullLog())
+    sample = run_driver(bam, cfg(Config), device, _NullLog())
     assert sample.flow_stats["device"] > 0, sample.flow_stats
     assert device.getvalue() == native.getvalue()
 

@@ -1,10 +1,12 @@
 """The port's CLI (python -m strawberry_tpu_torch.cli) against the JAX
 package's on small simulated sets, in subprocesses: byte-identical GTF
 bodies and -T logs in the default modes, --fast-em (the plain f32 EM on
-the CPU) within a TPM tolerance, and runs with jax blocked from import,
-among them one through the device prep and flow routes.
-The port's subprocesses block jax throughout (this process imports it in
-conftest.py)."""
+the CPU) within a TPM tolerance, and runs with jax and the JAX package
+blocked from import, among them one through the device prep and flow
+routes. The two packages are independent copies: the port's subprocesses
+block both jax and strawberry_tpu throughout (this process imports them),
+and report every shared library they mapped, so a test can show that the
+port loads only the host library built from its own native/ sources."""
 import json
 import os
 import subprocess
@@ -17,6 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from strawberry_tpu.sim import make_dataset
+from strawberry_tpu_torch import sim as port_sim
 
 # name -> (make_dataset arguments, strandedness flag)
 DATASETS = {"paired": (dict(seed=9, paired=True), "--fr"),
@@ -26,19 +29,28 @@ DATASETS = {"paired": (dict(seed=9, paired=True), "--fr"),
 MODES = {"g": ["-g", "{gtf}"], "g_r": ["-g", "{gtf}", "-r"], "abinitio": []}
 
 # Runs every argv of the list through <package>.cli.main in one process and
-# prints the exit codes, each run's flow-solve and prep counts, and whether
-# jax was imported, as JSON. BLOCK_JAX=1 makes `import jax` fail.
+# prints the exit codes, each run's flow-solve and prep counts, whether jax
+# or the JAX package was imported, and the shared libraries the process
+# mapped, as JSON. BLOCK_JAX=1 makes `import jax` and `import
+# strawberry_tpu` fail.
 _RUNNER = """
 import json, os, sys
 if os.environ.get("BLOCK_JAX"):
     sys.modules["jax"] = None
+    sys.modules["strawberry_tpu"] = None
 import importlib
 cli = importlib.import_module(sys.argv[1] + ".cli")
 samples = []
 run = cli.run_driver
 cli.run_driver = lambda *a, **k: samples.append(run(*a, **k)) or samples[-1]
 rcs = [cli.main(argv) for argv in json.loads(sys.argv[2])]
+with open("/proc/self/maps") as f:
+    libs = sorted({l.split()[-1] for l in f if l.rstrip().endswith(".so")})
 print(json.dumps({"rcs": rcs, "jax": sys.modules.get("jax") is not None,
+                  "jax_package": any(
+                      m.split(".")[0] == "strawberry_tpu"
+                      and sys.modules[m] is not None for m in sys.modules),
+                  "libs": libs,
                   "stats": [[s.flow_stats, getattr(s, "prep_stats", {})]
                             for s in samples]}))
 """
@@ -56,7 +68,18 @@ def run_cli(package, argvs, block_jax=False, **env):
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["rcs"] == [0] * len(argvs), proc.stderr[-4000:]
+    if block_jax:
+        assert_standalone(res)
     return res
+
+
+def assert_standalone(res):
+    """Neither jax nor the JAX package was imported, and the only host
+    library loaded is the port's own build (build/strawberry_tpu_torch/)."""
+    assert res["jax"] is False and res["jax_package"] is False
+    host = [lib for lib in res["libs"] if "libstrawberry_host" in lib]
+    assert host and all(os.sep + os.path.join("build", "strawberry_tpu_torch")
+                        + os.sep in lib for lib in host), host
 
 
 def body(path):
@@ -185,6 +208,7 @@ def test_port_refuses_unported_launches(tmp_path):
 _REFUSALS = """
 import json, os, sys
 sys.modules["jax"] = None
+sys.modules["strawberry_tpu"] = None
 from strawberry_tpu_torch.cli import main
 msgs = []
 for argv, env in json.loads(sys.argv[1]):
@@ -216,3 +240,15 @@ def test_port_refuses_unported_paths(tmp_path):
     assert len(msgs) == len(cases)
     for m in msgs:
         assert m is not None and "not ported to strawberry_tpu_torch" in m
+
+
+def test_port_sim_writes_jax_package_bytes(tmp_path):
+    """The port's copy of sim.make_dataset writes the JAX package's BAM and
+    GTF bytes for one seed."""
+    kw = dict(seed=17, n_frags=1200, max_isoforms=4, paired=True)
+    outs = {name: mod(str(tmp_path / name), **kw)
+            for name, mod in (("jax", make_dataset),
+                              ("port", port_sim.make_dataset))}
+    for k in range(2):  # bam, gtf
+        with open(outs["jax"][k], "rb") as a, open(outs["port"][k], "rb") as b:
+            assert a.read() == b.read(), outs["jax"][k]

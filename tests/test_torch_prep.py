@@ -21,10 +21,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 
 from chip_smoke import prep_inputs, synthetic_prep_chunk
-from strawberry_tpu.config import Config
+from strawberry_tpu.config import Config as JaxConfig
 from strawberry_tpu.pipeline import run_driver as jax_run_driver
 from strawberry_tpu.quant import device_prep as jax_prep
 from strawberry_tpu.sim import make_dataset
+from strawberry_tpu_torch.config import Config
 from strawberry_tpu_torch.pipeline import run_driver
 from strawberry_tpu_torch.quant import device_prep
 from strawberry_tpu_torch.quant.cuda_prep import (quant_prep,
@@ -36,15 +37,16 @@ class _Sink:
         pass
 
 
-def _cfg(gtf, device_prep_mode, **cfg_kw):
-    return Config(ref_gtf_filename=gtf, utilize_ref_models=True,
+def _cfg(gtf, device_prep_mode, config=Config, **cfg_kw):
+    """A run's Config; each package gets its own Config class."""
+    return config(ref_gtf_filename=gtf, utilize_ref_models=True,
                   device_prep=device_prep_mode, **cfg_kw)
 
 
 def _jax_run(bam, gtf, device_prep_mode, **cfg_kw):
     out = io.StringIO()
-    sample = jax_run_driver(bam, _cfg(gtf, device_prep_mode, **cfg_kw), out,
-                            _Sink())
+    sample = jax_run_driver(bam, _cfg(gtf, device_prep_mode, JaxConfig,
+                                      **cfg_kw), out, _Sink())
     return out.getvalue(), getattr(sample, "prep_stats", {})
 
 
