@@ -7,8 +7,9 @@ one NVIDIA GPU and fails unless every phase holds.
 Phases:
   1. the card's name and power limit (nvidia-smi); CUDA must be available.
   2. build the host C++ library (from strawberry_tpu_torch/native/, with
-     g++) and the three kernels (csrc/em_bucket.cu, csrc/quant_prep.cu,
-     csrc/mcf_bucket.cu) from this checkout, the kernels in parallel, timed.
+     g++) and the four kernels (csrc/em_bucket.cu, csrc/quant_prep.cu,
+     csrc/mcf_bucket.cu, csrc/shard_reduce.cu) from this checkout, the
+     kernels in parallel, timed.
   3. the EM kernel against its plain PyTorch version at the four tier
      shapes, on seeded random buckets that include a zero-denominator
      locus, inactive loci and an all-zero column. f64: rtol/atol 1e-9
@@ -31,6 +32,16 @@ Phases:
      mincostflow.solve_dense, array-equal, on seeded random CMPC problems
      at the node buckets 64, 128 and 256, with an infeasible problem and
      an inactive locus. CUDA-event times.
+  3d. the shard-row reduction kernel against its plain version and against
+     torch.sum(rows, dim=0), the one PyTorch call that computes the same
+     function: seeded count rows up to 2^40 at (1, 600), (2, 1201),
+     (8, 4097) and (8, 1), bit-identical to both and across two runs; bad
+     inputs refused. CUDA-event times of all three, and the bytes bound.
+  3e. sharded_em_bucket over a mesh of 4 (mdl 1) and of 8 (mdl 2), every
+     slot on this GPU with its own stream, on phase 3's tier-1 and tier-2
+     buckets: driven with its launch count set to 0 before and read after,
+     then theta and failed bit-identical to one launch over the whole
+     bucket in f64 (f32 reported) and within 1e-9 of the plain version.
   4. end to end through the CLI on the bench's realistic shape (bench.py
      dataset_realistic: seed 303, 24 x 16 Mb chromosomes, up to 20
      isoforms) at 1M fragments (~2M reads), generated once under
@@ -51,7 +62,16 @@ Phases:
      is then held against its plain version again, with the same numbers
      as in phase 3, on inputs the main path made: the first full bucket of
      each EM tier, the first full prep chunk, the largest bucket of each
-     MCF node size.
+     MCF node size. Then the parallel layer, each against the default
+     `-g -r` body: `--shards 4` with STRAWB_DEVICE_EM=1 (byte for byte;
+     repeated under the profiler) and with --fast-em (the fast-em bars),
+     EM and reduction launches in both; two CLI processes joined by
+     torch.distributed over gloo on 127.0.0.1, both on this GPU, with
+     STRAWB_DEVICE_EM=1 (rank 0's body byte for byte, a ranged-ingest
+     record and EM and reduction launches in each rank); `-p 2` in a fresh
+     process (byte for byte, no launch, no CUDA context in the parent at
+     the forks). The reduction kernel is held once more on the rows the
+     sharded and the 2-process run summed.
 
 The prep and MCF times come with their bounds too. The line before the
 last is the JSON kernel report; the last line is
@@ -702,6 +722,153 @@ def check_mcf(dev):
     return summed(parts)
 
 
+# --------------------------------------------------------------- phase 3d
+def compare_reduce(dev, rows_np, what):
+    """The reduction kernel against its plain version and against the one
+    PyTorch call that computes the same function, torch.sum(rows, dim=0),
+    on one (N, H) array: bit-identical to both and across two runs; returns
+    {ms, plain_ms, library_ms, max_abs_err, bound_ms, bound_by}."""
+    import torch
+    from strawberry_tpu_torch.parallel.cuda_reduce import (
+        shard_colsum_cuda, shard_colsum_reference)
+    rows = torch.from_numpy(rows_np).to(dev)
+    out, out2 = shard_colsum_cuda(rows), shard_colsum_cuda(rows)
+    plain = shard_colsum_reference(rows)
+    lib = torch.sum(rows, dim=0)
+    torch.cuda.synchronize()
+    err = max((out - plain).abs().max().item(),
+              (out - lib).abs().max().item())
+    require(torch.equal(out, out2),
+            f"{what}: reduction kernel not bit-identical across runs")
+    require(torch.equal(out, plain),
+            f"{what}: reduction kernel differs from the plain version "
+            f"(max abs err {err})")
+    require(torch.equal(out, lib),
+            f"{what}: reduction kernel differs from torch.sum(dim=0) (max "
+            f"abs err {err})")
+    ms = cuda_ms(lambda: shard_colsum_cuda(rows), reps=200)
+    plain_ms = cuda_ms(lambda: shard_colsum_reference(rows), reps=20)
+    library_ms = cuda_ms(lambda: torch.sum(rows, dim=0), reps=200)
+    N, H = rows_np.shape
+    # every row read once and the sums written once; N - 1 additions a column
+    b = bound((N - 1) * H, (N + 1) * H * 8, "f64")
+    log(f"  {what} {N}x{H}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"torch.sum(dim=0) {library_ms:.5f} ms, bound {b['bound_ms']:.7f} "
+        f"ms ({b['bound_by']}), bit-identical to both")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": float(err), **b}
+
+
+def check_reduce(dev):
+    """Phase 3d: seeded rows of counts up to 2^40 (a fragment-length
+    histogram row per shard) at one, two and eight shards and at the
+    allreduce_scalar shape (8, 1); inputs the wrapper must refuse. Returns
+    the parts summed, with `library_ms` summed too."""
+    import numpy as np
+    import torch
+    from strawberry_tpu_torch.parallel.cuda_reduce import shard_colsum_cuda
+    parts = {}
+    for seed, (N, H) in enumerate(((1, 600), (2, 1201), (8, 4097), (8, 1))):
+        rows = np.random.default_rng(3000 + seed).integers(
+            0, 2**40, size=(N, H)).astype(np.float64)
+        parts[f"{N}x{H}"] = compare_reduce(dev, rows, "seeded counts")
+    good = torch.zeros((4, 64), dtype=torch.float64, device=dev)
+    before = shard_colsum_cuda.launches
+    for bad in (good.float(), good[:, ::2], good[0], good.cpu()):
+        try:
+            shard_colsum_cuda(bad)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure("the reduction wrapper took a "
+                           f"{tuple(bad.shape)} {bad.dtype} {bad.device} "
+                           "input it must refuse")
+    require(shard_colsum_cuda.launches == before,
+            "a refused input counted as a launch")
+    out = summed(parts)
+    out["library_ms"] = sum(r["library_ms"] for r in parts.values())
+    return out
+
+
+# --------------------------------------------------------------- phase 3e
+def check_sharded_em(dev):
+    """Phase 3e: phase 3's seeded tier-1 and tier-2 buckets through
+    sharded_em_bucket over a mesh of 4 (mdl 1) and of 8 (mdl 2, 4 slots),
+    every slot on this GPU with its own stream. The sharded runs are driven
+    first, with their launch count set to 0 before and read after; then
+    theta and failed are held bit for bit against one kernel launch over
+    the whole bucket, in f64 and f32, and the f64 result within 1e-9 of
+    the plain version. Returns {launches, ms (sharded), whole_ms, plain_ms,
+    max_abs_err, bound_ms, bound_by, parts}."""
+    import numpy as np
+    import torch
+    from strawberry_tpu_torch.parallel.mesh import (make_mesh,
+                                                    sharded_em_bucket)
+    from strawberry_tpu_torch.quant.cuda_em import (bucket_to_torch,
+                                                    em_bucket_cuda,
+                                                    em_bucket_reference)
+    from strawberry_tpu_torch.quant.device import _TIERS
+    meshes = {"4x1": make_mesh(4, mdl=1), "4x2": make_mesh(8)}
+    require(all(m.shape["dp"] == 4 for m in meshes.values())
+            and meshes["4x2"].shape["mdl"] == 2, f"meshes {meshes}")
+    runs = {k: sharded_em_bucket(m) for k, m in meshes.items()}
+    buckets = {}
+    for tier in (1, 2):
+        R, C, B = _TIERS[tier]
+        bucket = random_bucket(np.random.default_rng(1000 + tier), B, R, C)
+        buckets[tier] = (bucket, {
+            dt: bucket_to_torch(*bucket, dev, torch_dt) for dt, torch_dt in
+            (("f64", torch.float64), ("f32", torch.float32))})
+
+    sharded_em_bucket.launches = 0
+    results = {(tier, k, dt): run(*args[dt])
+               for tier, (_b, args) in buckets.items()
+               for k, run in runs.items() for dt in ("f64", "f32")}
+    torch.cuda.synchronize()
+    launches = sharded_em_bucket.launches
+    require(launches == 4 * len(results),
+            f"sharded_em_bucket: {launches} launches for {len(results)} "
+            "runs over 4 slots")
+
+    parts = {}
+    f32_same = True
+    for tier, (bucket, args) in buckets.items():
+        whole = {dt: em_bucket_cuda(*args[dt]) for dt in args}
+        plain, plain_failed, iters = em_bucket_reference(*args["f64"],
+                                                         iterations=True)
+        torch.cuda.synchronize()
+        for k in runs:
+            theta, failed = results[(tier, k, "f64")]
+            require(torch.equal(theta, whole["f64"][0])
+                    and torch.equal(failed, whole["f64"][1]),
+                    f"tier {tier}, mesh {k}: sharded f64 result is not the "
+                    "whole bucket's bit for bit")
+            require(torch.allclose(theta, plain, rtol=1e-9, atol=1e-9)
+                    and torch.equal(failed, plain_failed),
+                    f"tier {tier}, mesh {k}: sharded f64 result off the "
+                    f"plain version by {(theta - plain).abs().max().item()}")
+            t32, f32 = results[(tier, k, "f32")]
+            f32_same &= bool(torch.equal(t32, whole["f32"][0])
+                             and torch.equal(f32, whole["f32"][1]))
+        err = (results[(tier, "4x1", "f64")][0] - plain).abs().max().item()
+        a64 = args["f64"]
+        ms = cuda_ms(lambda: runs["4x1"](*a64), reps=20)
+        whole_ms = cuda_ms(lambda: em_bucket_cuda(*a64), reps=20)
+        plain_ms = cuda_ms(lambda: em_bucket_reference(*a64), reps=3)
+        b = em_bound(bucket, iters.cpu().numpy(), "f64")
+        shape = "x".join(map(str, bucket[0].shape))
+        parts[shape] = {"ms": ms, "whole_ms": whole_ms, "plain_ms": plain_ms,
+                        "max_abs_err": err, **b}
+        log(f"  tier {tier} {shape} f64 over 4 slots: sharded {ms:.4f} ms, "
+            f"one launch {whole_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}); bit-identical to "
+            f"one launch on both meshes, max abs err vs plain {err:.3e}")
+    log(f"  f32 sharded results bit-identical to one launch: {f32_same}")
+    out = summed(parts)
+    out.update(launches=launches, f32_bit_identical=f32_same,
+               whole_ms=sum(r["whole_ms"] for r in parts.values()))
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 def realistic_set(n_frags):
     from strawberry_tpu_torch.sim import make_dataset
@@ -735,28 +902,37 @@ def body(path):
         return "".join(line for line in f if not line.startswith("#"))
 
 
-KERNELS = ("em_bucket", "quant_prep", "mcf_bucket")
+KERNELS = ("em_bucket", "quant_prep", "mcf_bucket", "shard_reduce")
 # the __global__ functions of each kernel source, as the profiler names them
 KERNEL_FUNCTIONS = {"em_bucket": ("em_warp_kernel", "em_rows_kernel",
                                   "em_strip_kernel"),
                     "quant_prep": ("compat_kernel", "rows_kernel"),
-                    "mcf_bucket": ("mcf_bucket_kernel",)}
+                    "mcf_bucket": ("mcf_bucket_kernel",),
+                    "shard_reduce": ("shard_colsum_kernel",)}
 
 
 def launch_counters():
-    """{kernel name: its wrapper} for every kernel the main paths run."""
+    """{kernel name: its wrapper} for every kernel the main paths run
+    (sharded_em_bucket counts the EM launches it makes itself, over its
+    mesh; they are counted under em_bucket too)."""
     from strawberry_tpu_torch.assembly.cuda_mcf import mcf_bucket_cuda
+    from strawberry_tpu_torch.parallel.cuda_reduce import shard_colsum_cuda
+    from strawberry_tpu_torch.parallel.mesh import sharded_em_bucket
     from strawberry_tpu_torch.quant.cuda_em import em_bucket_cuda
     from strawberry_tpu_torch.quant.cuda_prep import quant_prep_cuda
     return {"em_bucket": em_bucket_cuda, "quant_prep": quant_prep_cuda,
-            "mcf_bucket": mcf_bucket_cuda}
+            "mcf_bucket": mcf_bucket_cuda, "shard_colsum": shard_colsum_cuda,
+            "sharded_em_bucket": sharded_em_bucket}
 
 
-def run_cli(name, argv, env):
+def run_cli(name, argv, env, dispatchers=1):
     """One CLI run in this process, with every launch count set to 0 just
     before it and read just after it. Returns the GTF path, the wall, the
-    EM dispatcher with its tier-fitting count and expected launches, the
-    Sample, and the run's launch counts."""
+    EM dispatch (device and host counts summed over the run's
+    `dispatchers` EM dispatchers, one a shard under --shards; the first
+    full bucket of each tier) with its tier-fitting count and expected
+    launches, the Sample (None under --shards, which has one a shard), and
+    the run's launch counts."""
     from types import SimpleNamespace
     from strawberry_tpu_torch import cli
     from strawberry_tpu_torch.quant import device as qdev
@@ -815,23 +991,35 @@ def run_cli(name, argv, env):
             else:
                 os.environ[k] = v
     require(rc == 0, f"{name}: CLI exit code {rc}")
-    require(len(Recording.made) == 1, f"{name}: expected one EM dispatcher")
-    d = Recording.made[0]
+    require(len(Recording.made) == dispatchers,
+            f"{name}: {len(Recording.made)} EM dispatchers, expected "
+            f"{dispatchers}")
     n_fit = [0] * len(qdev._TIERS)
-    for t in d.tier_of:
-        if t is not None:
-            n_fit[t] += 1
-    want = sum(math.ceil(n / qdev._TIERS[t][2]) for t, n in enumerate(n_fit))
-    sample = samples[0]
+    want = 0
+    d = SimpleNamespace(n_device=0, n_host=0, buckets={})
+    for made in Recording.made:
+        fit = [0] * len(qdev._TIERS)
+        for t in made.tier_of:
+            if t is not None:
+                fit[t] += 1
+        # every dispatcher flushes its own partial buckets
+        want += sum(math.ceil(n / qdev._TIERS[t][2])
+                    for t, n in enumerate(fit))
+        n_fit = [a + b for a, b in zip(n_fit, fit)]
+        d.n_device += made.n_device
+        d.n_host += made.n_host
+        for t, b in made.buckets.items():
+            d.buckets.setdefault(t, b)
+    sample = samples[0] if samples else None
     log(f"  {name}: wall {wall:.3f} s, EM device {d.n_device} / host "
         f"{d.n_host}, tier-fitting {sum(n_fit)} {n_fit}, flow "
-        f"{sample.flow_stats}, prep {getattr(sample, 'prep_stats', {})}, "
-        f"launches {launches}")
+        f"{getattr(sample, 'flow_stats', {})}, prep "
+        f"{getattr(sample, 'prep_stats', {})}, launches {launches}")
     return SimpleNamespace(out=out, wall=wall, d=d, fit=sum(n_fit),
                            want=want, sample=sample, launches=launches)
 
 
-def profiled_run(name, argv, env=None):
+def profiled_run(name, argv, env=None, dispatchers=1):
     """The run again under torch.profiler (device activity only) and the
     pipeline's phase timer: device busy time, each kernel's share of it,
     and the phase report."""
@@ -841,7 +1029,7 @@ def profiled_run(name, argv, env=None):
     profiling.enable()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall = run_cli(name, argv, env or {}).wall
+            wall = run_cli(name, argv, env or {}, dispatchers).wall
             phases = profiling.GLOBAL.report()  # before the trace is read
     finally:
         profiling.GLOBAL.enabled = False
@@ -957,6 +1145,231 @@ def mcf_runs(gtf, bam, g_host):
             "mcf_same_as_default": same}, buckets
 
 
+# Runs cli.main(argv) once in a fresh process, with jax and the JAX package
+# blocked from import, and prints as JSON its exit code, its wall, every
+# kernel's launch count, the EM dispatchers' device and host counts, whether
+# CUDA had been initialized at each fork the process made and at its end.
+# With SMOKE_SAVE_ROWS=<path> it saves the rows it hands to the reduction.
+_CLI_RUNNER = """
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+sys.modules["jax"] = None
+sys.modules["strawberry_tpu"] = None
+import torch
+forks = []
+os.register_at_fork(before=lambda: forks.append(torch.cuda.is_initialized()))
+import chip_smoke
+from strawberry_tpu_torch import cli
+from strawberry_tpu_torch.parallel import cuda_reduce
+from strawberry_tpu_torch.quant import device as qdev
+split = {"device": 0, "host": 0}
+finish = qdev.EmDispatcher.finish
+def counting_finish(self):
+    split["device"] += self.n_device
+    split["host"] += self.n_host
+    return finish(self)
+qdev.EmDispatcher.finish = counting_finish
+save = os.environ.get("SMOKE_SAVE_ROWS")
+if save:
+    colsum = cuda_reduce.shard_colsum
+    def saving_colsum(rows):
+        import numpy as np
+        np.save(save, rows.cpu().numpy())
+        return colsum(rows)
+    cuda_reduce.shard_colsum = saving_colsum
+counters = chip_smoke.launch_counters()
+t0 = time.perf_counter()
+rc = cli.main(json.loads(sys.argv[1]))
+if torch.cuda.is_initialized():
+    torch.cuda.synchronize()
+print(json.dumps({"rc": rc, "wall_s": time.perf_counter() - t0,
+                  "launches": {k: w.launches for k, w in counters.items()},
+                  "em_split": split, "cuda_at_fork": forks,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+PROCESS_TIMEOUT_S = 600
+
+
+def cli_processes(name, per_process):
+    """One fresh CLI process per (argv, env) of `per_process`, all started
+    together; process k writes <name><k>.gtf and .log. Waits for all (a
+    process that outlives PROCESS_TIMEOUT_S fails the smoke), kills whatever
+    is left, and returns (the GTF paths, each process's report, the wall
+    from the first start to the last exit)."""
+    outs, procs = [], []
+    t0 = time.perf_counter()
+    try:
+        for k, (argv, env) in enumerate(per_process):
+            out = os.path.join(WORK, "out", f"{name}{k}.gtf")
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            for ext in (".gtf", ".log"):
+                if os.path.exists(out[:-4] + ext):
+                    os.remove(out[:-4] + ext)
+            outs.append(out)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _CLI_RUNNER, json.dumps(
+                    argv + ["-o", out, "-T", out[:-4] + ".log"])],
+                cwd=ROOT, env=dict(os.environ, **env),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        reports = []
+        for k, proc in enumerate(procs):
+            stdout, err = proc.communicate(timeout=PROCESS_TIMEOUT_S)
+            require(proc.returncode == 0,
+                    f"{name}{k}: exit code {proc.returncode}\n{err[-4000:]}")
+            reports.append(json.loads(stdout.strip().splitlines()[-1]))
+            require(reports[-1]["rc"] == 0, f"{name}{k}: CLI exit code "
+                    f"{reports[-1]['rc']}\n{err[-4000:]}")
+        wall = time.perf_counter() - t0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, r in enumerate(reports):
+        log(f"  {name}{k}: wall {r['wall_s']:.3f} s in the process, EM "
+            f"device {r['em_split']['device']} / host "
+            f"{r['em_split']['host']}, launches {r['launches']}")
+    return outs, reports, wall
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_runs(base, host, fast, ref):
+    """The parallel layer on the realistic set, each against the default
+    `-g -r` run (`host`): `--shards 4` with STRAWB_DEVICE_EM=1 (the body
+    byte for byte) and with --fast-em (the fast-em bars), both with EM and
+    reduction launches; two CLI processes joined over gloo on 127.0.0.1,
+    both on this GPU, with STRAWB_DEVICE_EM=1 (rank 0's body byte for byte,
+    each rank's ranged-ingest record, EM and reduction launches in each);
+    `-p 2` (the body byte for byte, no kernel launched, no CUDA context in
+    the parent at either fork). Returns the walls, launches and splits, and
+    the rows each device route handed to the reduction."""
+    import numpy as np
+    from strawberry_tpu_torch.parallel import cuda_reduce
+    want_body = body(host.out)
+    rows_seen = {}
+    colsum = cuda_reduce.shard_colsum
+
+    def recording_colsum(rows):
+        rows_seen.setdefault("x".join(map(str, rows.shape)),
+                             rows.cpu().numpy())
+        return colsum(rows)
+
+    dev_env = {"STRAWB_DEVICE_EM": "1"}
+    cuda_reduce.shard_colsum = recording_colsum
+    try:
+        sh = run_cli("g_r_shards4_device_em", base + ["--shards", "4"],
+                     dev_env, dispatchers=4)
+    finally:
+        cuda_reduce.shard_colsum = colsum
+    require(body(sh.out) == want_body,
+            "--shards 4 STRAWB_DEVICE_EM=1: GTF body differs from the "
+            "default's")
+    require(sh.d.n_device == sh.fit and sh.launches["em_bucket"] == sh.want
+            > 0, f"--shards 4 STRAWB_DEVICE_EM=1: {sh.d.n_device} EMs on "
+            f"the card of {sh.fit}, {sh.launches['em_bucket']} launches of "
+            f"{sh.want}")
+    # the histogram rows and the per-shard mapped-read counts
+    require(sh.launches["shard_colsum"] == 2 and len(rows_seen) == 2,
+            f"--shards 4: {sh.launches['shard_colsum']} reduction launches, "
+            f"rows {list(rows_seen)}")
+    log("  --shards 4 STRAWB_DEVICE_EM=1: GTF body byte-identical to the "
+        "default's")
+
+    shf = run_cli("g_r_shards4_fast_em", base + ["--fast-em", "--shards",
+                                                 "4"], {}, dispatchers=4)
+    require(shf.d.n_device == shf.fit and shf.launches["em_bucket"]
+            == shf.want > 0 and shf.launches["shard_colsum"] == 2,
+            f"--shards 4 --fast-em: {shf.d.n_device} of {shf.fit} on the "
+            f"card, launches {shf.launches} (EM expected {shf.want})")
+    got = tpms(shf.out)
+    require(set(got) == set(ref), "--shards 4 --fast-em transcript set "
+            "differs from the default's")
+    a = np.array([ref[t] for t in sorted(ref)])
+    b = np.array([got[t] for t in sorted(ref)])
+    require(np.isfinite(b).all(), "--shards 4 --fast-em TPM not finite")
+    p99 = float(np.percentile(np.abs(a - b) / np.maximum(np.abs(a), 1e-12),
+                              99))
+    require(p99 <= 1e-3, f"--shards 4 --fast-em TPM p99 rel err {p99} > 1e-3")
+    same_fast = body(shf.out) == body(fast.out)
+    log(f"  --shards 4 --fast-em vs default: TPM p99 rel err {p99:.3e}; "
+        f"GTF body equal to the single-process --fast-em run's: {same_fast}")
+
+    prof = profiled_run("g_r_shards4_device_em_profiled",
+                        base + ["--shards", "4"], dev_env, dispatchers=4)
+
+    rows_path = os.path.join(WORK, "out", "dist_rows.npy")
+    if os.path.exists(rows_path):
+        os.remove(rows_path)
+    coord = f"127.0.0.1:{free_port()}"
+    outs, ranks, dist_wall = cli_processes("g_r_dist", [
+        (base, {**dev_env, "STRAWB_DIST_COORD": coord,
+                "STRAWB_DIST_NPROCS": "2", "STRAWB_DIST_PROCID": str(k),
+                **({"SMOKE_SAVE_ROWS": rows_path} if k == 0 else {})})
+        for k in range(2)])
+    require(body(outs[0]) == want_body,
+            "2 processes STRAWB_DEVICE_EM=1: rank 0's GTF body differs from "
+            "the default's")
+    shares = []
+    for k, (out, r) in enumerate(zip(outs, ranks)):
+        with open(out[:-4] + ".log") as f:
+            m = re.search(r"ranged ingest: inflated (\d+) of (\d+)",
+                          f.read())
+        require(m, f"rank {k}: no ranged-ingest record in its -T log")
+        shares.append(int(m.group(1)) / int(m.group(2)))
+        require(r["launches"]["em_bucket"] > 0
+                and r["launches"]["shard_colsum"] > 0
+                and r["em_split"]["device"] > 0,
+                f"rank {k}: launches {r['launches']}, EM {r['em_split']}")
+    require(sum(shares) < 1.5 and max(shares) < 0.9,
+            f"ranged ingest: shares {shares}")
+    log(f"  2 processes STRAWB_DEVICE_EM=1: wall {dist_wall:.3f} s from the "
+        f"first start to the last exit; rank 0's GTF body byte-identical to "
+        f"the default's; ranged-ingest shares {shares}")
+    rows_seen["dist"] = np.load(rows_path)
+    require(rows_seen["dist"].shape[0] == 2,
+            f"rank 0 summed rows of shape {rows_seen['dist'].shape}")
+
+    (p_out,), (p,), p_wall = cli_processes("g_r_p2", [(base + ["-p", "2"],
+                                                       {})])
+    require(body(p_out) == want_body,
+            "-p 2: GTF body differs from the default's")
+    require(not any(p["launches"].values()),
+            f"-p 2 launched kernels: {p['launches']}")
+    require(p["cuda_at_fork"] == [False, False]
+            and not p["cuda_initialized"],
+            f"-p 2: CUDA initialized at the forks {p['cuda_at_fork']}, at "
+            f"the end {p['cuda_initialized']}")
+    log(f"  -p 2: wall {p_wall:.3f} s with the process's start; GTF body "
+        "byte-identical to the default's; no kernel launched, no CUDA "
+        "context in the parent")
+    return {"rows": rows_seen, "profiled_shards4": prof,
+            "walls_s": {"g_r_shards4_device_em": sh.wall,
+                        "g_r_shards4_fast_em": shf.wall,
+                        "g_r_dist2_device_em": dist_wall,
+                        "g_r_dist2_in_process": [r["wall_s"] for r in ranks],
+                        "g_r_p2": p_wall, "g_r_p2_in_process": p["wall_s"]},
+            "em_split": {"g_r_shards4_device_em": [sh.d.n_device,
+                                                   sh.d.n_host],
+                         "g_r_shards4_fast_em": [shf.d.n_device,
+                                                 shf.d.n_host],
+                         "g_r_dist2_device_em": [
+                             [r["em_split"]["device"], r["em_split"]["host"]]
+                             for r in ranks]},
+            "launches": {"shards4_device_em": sh.launches,
+                         "shards4_fast_em": shf.launches,
+                         "dist2_device_em": [r["launches"] for r in ranks],
+                         "p2": p["launches"]},
+            "ranged_ingest_shares": shares,
+            "shards4_fast_em_tpm_p99": p99,
+            "shards4_fast_em_same_as_fast_em": same_fast}
+
+
 def end_to_end(n_frags, dev):
     import numpy as np
 
@@ -1021,9 +1434,11 @@ def end_to_end(n_frags, dev):
     require(gt and all(math.isfinite(v) for v in gt.values()),
             "-g --fast-em produced no finite TPMs")
 
+    par = parallel_runs(base, host, fast, ref)
+
     log("  the main path's own inputs: the first full bucket of each EM "
         "tier, the first full prep chunk, the largest bucket of each MCF "
-        "node size:")
+        "node size, the rows the sharded and the 2-process run summed:")
     real = {"x".join(map(str, b[0].shape)):  # F's B x R x C
             compare_bucket(dev, b, f"main-path tier {t}")
             for t, b in sorted(fast.d.buckets.items())}
@@ -1033,9 +1448,15 @@ def end_to_end(n_frags, dev):
         dev, b, f"main-path MCF bucket {M}") for M, b in
         sorted(mcf_buckets.items())}
     require(real_mcf, "STRAWB_DEVICE_MCF=1 launched no bucket")
+    real_rows = {("2 processes " if k == "dist" else "--shards 4 ")
+                 + "x".join(map(str, r.shape)):
+                 compare_reduce(dev, r, "main-path rows, " + (
+                     "2 processes" if k == "dist" else "--shards 4"))
+                 for k, r in par.pop("rows").items()}
 
     return {"main_path_buckets": real, "main_path_prep_chunk": real_prep,
-            "main_path_mcf_buckets": real_mcf, "profiled_fast_em": prof,
+            "main_path_mcf_buckets": real_mcf, "main_path_rows": real_rows,
+            "parallel": par, "profiled_fast_em": prof,
             "profiled_prep_all": prof_prep, "profiled_mcf": prof_mcf,
             "walls_s": {"g_r_host": host.wall, "g_r_fast_em": fast.wall,
                         "g_r_device_em": dev_em.wall,
@@ -1101,6 +1522,9 @@ def main():
         raise built["error"]
     for name in KERNELS:
         kernels.load(name)
+    require(torch.distributed.is_available()
+            and torch.distributed.is_gloo_available(),
+            "torch.distributed with gloo is needed for the 2-process run")
     log(f"  host library {host_build:.1f} s, kernels {built['s']:.1f} s "
         f"({', '.join(KERNELS)}, in parallel)")
 
@@ -1114,6 +1538,12 @@ def main():
 
     log("phase 3c: MCF kernel vs plain version and solve_dense")
     mcf = check_mcf(dev)
+
+    log("phase 3d: reduction kernel vs plain version and torch.sum(dim=0)")
+    red = check_reduce(dev)
+
+    log("phase 3e: sharded_em_bucket vs one launch over the whole bucket")
+    sharded = check_sharded_em(dev)
 
     log(f"phase 4: end to end, {args.n_frags} fragments")
     e2e = end_to_end(args.n_frags, dev)
@@ -1130,8 +1560,9 @@ def main():
                "plain version; inactive loci exactly theta0",
         "f64": "rtol=atol=1e-9 vs the plain version and quant/em.py "
                "em_run; two runs bit-identical"}
-    # no single PyTorch call computes any of these functions
-    kernels_line = {"kernels": [dict(k, library_ms=None) for k in [
+    # no single PyTorch call computes any of these functions but the
+    # reduction, which carries its own library_ms (torch.sum(dim=0))
+    kernels_line = {"kernels": [{"library_ms": None, **k} for k in [
         {"name": f"em_bucket_{dt}", "route": "cuda", "source": src,
          "replaces": replaces[dt], "tolerance": tolerance[dt],
          "launches": e2e["launches"][f"em_bucket_{dt}"],
@@ -1151,7 +1582,20 @@ def main():
          "tolerance": "array-equal to the plain version and to "
                       "mincostflow.solve_dense; two runs identical",
          "launches": e2e["launches"]["mcf_bucket"], **mcf,
-         "main_path_buckets": e2e["main_path_mcf_buckets"]}]]}
+         "main_path_buckets": e2e["main_path_mcf_buckets"]},
+        {"name": "shard_colsum", "route": "cuda",
+         "source": "strawberry_tpu_torch/csrc/shard_reduce.cu",
+         "replaces": "strawberry_tpu/parallel/collectives.py:26",
+         "tolerance": "bit-identical to the plain version and to "
+                      "torch.sum(dim=0); two runs bit-identical",
+         "launches": e2e["parallel"]["launches"]["shards4_device_em"][
+             "shard_colsum"], **red,
+         "main_path_rows": e2e["main_path_rows"]},
+        {"name": "sharded_em_bucket", "route": "cuda", "source": src,
+         "replaces": "strawberry_tpu/parallel/mesh.py:52",
+         "tolerance": "f64 theta and failed bit-identical to one launch "
+                      "over the whole bucket, rtol=atol=1e-9 vs the plain "
+                      "version", **sharded}]]}
     shutil.rmtree(os.path.join(WORK, "out"), ignore_errors=True)
     log(f"  smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -7,8 +7,13 @@ STRAWB_DEVICE_MCF=1.
 
     python -m strawberry_tpu_torch.cli -g ann.gtf [-r] [--fast-em] in.bam
 
-The distributed launches (--shards, STRAWB_DIST_NPROCS > 1) are not ported
-yet and are refused.
+The parallel launches (parallel/): `-p N` forks N shard workers that keep
+their work on the host; `--shards N` runs N genome shards in sequence in
+this process; and a launcher that sets STRAWB_DIST_COORD (host:port),
+STRAWB_DIST_NPROCS and STRAWB_DIST_PROCID starts one process per shard,
+joined by torch.distributed over gloo (several may share one GPU). In the
+last two the cross-shard statistics are summed on the GPU by the
+reduction kernel (parallel/cuda_reduce.py).
 """
 from __future__ import annotations
 
@@ -68,8 +73,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel; STRAWB_FASTEM_AFTER=N keeps the first N "
                         "loci on the host)")
     p.add_argument("--shards", type=int, default=0,
-                   help="the N-shard simulation of the JAX package; not "
-                        "ported yet, refused")
+                   help="CORRECTNESS SIMULATION of the N-shard distributed "
+                        "pipeline: shards run IN SEQUENCE in this process "
+                        "to validate multi-process byte-parity on one host "
+                        "— it is slower than a normal run; use -p for "
+                        "actual host parallelism (0 = off)")
     return p
 
 
@@ -119,19 +127,26 @@ def config_from_args(args) -> Config:
     return cfg
 
 
+def _maybe_init_distributed() -> int:
+    """Multi-process launch: when the launcher sets STRAWB_DIST_COORD /
+    STRAWB_DIST_NPROCS / STRAWB_DIST_PROCID, join the torch.distributed
+    process group BEFORE any pipeline work and return this process's id
+    (0 for a single process)."""
+    nprocs = int(os.environ.get("STRAWB_DIST_NPROCS", "1"))
+    if nprocs <= 1:
+        return 0
+    coord = os.environ.get("STRAWB_DIST_COORD", "127.0.0.1:9731")
+    pid = int(os.environ.get("STRAWB_DIST_PROCID", "0"))
+    from .parallel.collectives import init_distributed
+    init_distributed(coord, nprocs, pid)
+    return pid
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.shards > 0:
-        print("--shards is not supported by strawberry_tpu_torch yet "
-              "(ROADMAP.md queue 1 item 7); run strawberry_tpu.cli for the "
-              "sharded simulation", file=sys.stderr)
-        return 2
-    if int(os.environ.get("STRAWB_DIST_NPROCS", "1")) > 1:
-        print("STRAWB_DIST_NPROCS > 1: multi-host runs are not supported "
-              "by strawberry_tpu_torch yet (ROADMAP.md queue 1 item 7)",
-              file=sys.stderr)
-        return 2
+    _maybe_init_distributed()
+    distributed = int(os.environ.get("STRAWB_DIST_NPROCS", "1")) > 1
 
     if os.path.exists(cfg.output_gtf):
         print(f"{cfg.output_gtf} exists! Exit.", file=sys.stderr)
@@ -147,7 +162,31 @@ def main(argv=None) -> int:
         fragfh = open(cfg.frag_context_out, "w") \
             if cfg.print_frag_context else None
         try:
-            run_driver(args.bam, cfg, out, log, fragfh, cmdline)
+            if distributed:
+                # each process runs exactly its genome shard; process 0
+                # gets the gathered, globally-normalized GTF
+                from .parallel.distributed import run_distributed
+                run_distributed(args.bam, cfg, out, log, fragfh)
+            elif args.shards > 0:
+                from .io.bamreader import load_bam
+                from .parallel.distributed import run_sharded
+                from .parallel.mesh import make_mesh
+                if cfg.verbose:
+                    os.environ["STRAWB_VERBOSE"] = "1"  # decode diag capture
+                try:
+                    from .io.native import load_bam_native
+                    table = load_bam_native(args.bam, cfg)
+                except Exception:
+                    table = load_bam(args.bam, cfg)
+                if cfg.verbose:
+                    # decode-time per-read cerr lines (read.cpp:611-684),
+                    # one print per record as the single decode sees them
+                    from .pipeline import _emit_read_diags
+                    _emit_read_diags(getattr(table, "diag_events", None))
+                run_sharded(table, cfg, args.bam, out, log,
+                            n_shards=args.shards, mesh=make_mesh(mdl=1))
+            else:
+                run_driver(args.bam, cfg, out, log, fragfh, cmdline)
         except IOError as e:
             print(f"ERROR: {e}", file=sys.stderr)
             return 1

@@ -15,8 +15,10 @@ models and runs the LCM EM. What differs from the original:
   per-locus EM as a CUDA kernel under --fast-em or STRAWB_DEVICE_EM=1)
   and, under STRAWB_DEVICE_PREP=all|budget, its device quant prep from
   quant/device_prep.py.
-- `run_driver` runs one process: the forked `-p` shard workers and the
-  STRAWB_TRACE_DIR device trace are not ported yet and are refused.
+- `run_driver` reaches its `-p` branch (parallel/multiproc.py, forked
+  shard workers that keep their work on the host) before anything touches
+  the GPU: a CUDA context does not survive a fork. The STRAWB_TRACE_DIR
+  device trace is not ported yet and is refused.
 
 Both methods are kept close to the originals so the two can be diffed.
 """
@@ -1463,12 +1465,9 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
                log: Optional[TextIO] = None,
                fragfile: Optional[TextIO] = None,
                cmdline: str = "") -> Optional[Sample]:
-    """driver() (Strawberry.cpp:237-371), single process, with the device
-    work on the GPU. Returns the Sample."""
-    if cfg.num_threads > 1 and not cfg.no_quant:
-        raise NotImplementedError(
-            "-p > 1: the forked shard workers are not ported to "
-            "strawberry_tpu_torch yet (ROADMAP.md queue 1 item 7)")
+    """driver() (Strawberry.cpp:237-371), with the device work on the GPU.
+    Returns the Sample, except on the forked -p path (the work lives in
+    the shard workers; the parent has no table) where it returns None."""
     if os.environ.get("STRAWB_TRACE_DIR"):
         raise NotImplementedError(
             "STRAWB_TRACE_DIR: the profiler trace is not ported to "
@@ -1486,6 +1485,23 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         os.environ["STRAWB_VERBOSE"] = "1"
     else:
         os.environ.pop("STRAWB_VERBOSE", None)
+    if cfg.num_threads > 1 and not cfg.no_quant:
+        # -p N: forked shard workers, each inflating only its own BGZF
+        # block span (no parent-side decode). Falls back to the COW-table
+        # variant below when the native span decoder is unavailable.
+        try:
+            from .io.native import get_lib
+            get_lib()
+            from .parallel.multiproc import run_multiprocess_ranged
+            with PROF.phase("multiprocess_pipeline"):
+                nrows = run_multiprocess_ranged(
+                    bam_path, cfg, out, n_procs=cfg.num_threads,
+                    fragfile=fragfile)
+            if cfg.verbose:
+                sys.stderr.write(PROF.report(total_reads=nrows) + "\n")
+            return None
+        except OSError:
+            pass
     # the GTF parse AND the ref-Contig build are independent of the main
     # thread's decode consumption; run both on a side thread while the
     # native decoder (which releases the GIL for the duration of the
@@ -1528,7 +1544,8 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         gtf_thread = threading.Thread(target=_read_gtf, daemon=True)
         gtf_thread.start()
     table = None
-    if cfg.stream_decode and cfg.native_cluster:
+    multiproc = cfg.num_threads > 1 and not cfg.no_quant
+    if not multiproc and cfg.stream_decode and cfg.native_cluster:
         # streaming decode: the BAM inflate+parse runs on a background
         # pipeline and pass-1 clustering consumes chromosome blocks as they
         # finalize, so decode wall time overlaps the pipeline instead of
@@ -1579,6 +1596,16 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
     if cfg.bias_correction and cfg.ref_fasta_file:
         from .io.fasta import FastaInterface
         sample.fasta = FastaInterface(cfg.ref_fasta_file)
+
+    if multiproc:
+        # reference's -p thread pool -> forked shard workers
+        from .parallel.multiproc import run_multiprocess
+        with PROF.phase("multiprocess_pipeline", items=len(table)):
+            run_multiprocess(table, cfg, bam_path, out, log,
+                             n_procs=cfg.num_threads)
+        if cfg.verbose:
+            sys.stderr.write(PROF.report(total_reads=len(table)) + "\n")
+        return sample
 
     # len() on a streaming table blocks until EOF; don't force it pre-pass
     from .io.sbam import StreamingHitTable

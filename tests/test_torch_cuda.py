@@ -4,8 +4,9 @@ gets (one warp a locus at tiers 0-1, one CTA with F in registers at tier 2,
 a thread block cluster at tier 3), on edge-case buckets and at odd shapes
 on either side of each specialization's limits, with f64 bit-identical
 across runs; quant prep
-(csrc/quant_prep.cu) on seeded synthetic chunks, and the min-cost flow
-(csrc/mcf_bucket.cu) at the three node buckets. Needs an NVIDIA GPU and
+(csrc/quant_prep.cu) on seeded synthetic chunks, the min-cost flow
+(csrc/mcf_bucket.cu) at the three node buckets, and the shard-row
+reduction (csrc/shard_reduce.cu) with the sharded EM bucket over it. Needs an NVIDIA GPU and
 nvcc; skips elsewhere. This file imports no jax, so on a machine without jax it
 runs on its own:
 
@@ -27,6 +28,9 @@ from strawberry_tpu.assembly.mincostflow import solve_dense
 from strawberry_tpu.quant.em import em_run
 from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_bucket_cuda,
                                                     mcf_bucket_reference)
+from strawberry_tpu_torch.parallel.cuda_reduce import (
+    shard_colsum, shard_colsum_cuda, shard_colsum_reference)
+from strawberry_tpu_torch.parallel.mesh import make_mesh, sharded_em_bucket
 from strawberry_tpu_torch.quant.cuda_em import (MAX_ITER, bucket_to_torch,
                                                 em_bucket_cuda,
                                                 em_bucket_plan,
@@ -264,3 +268,76 @@ def test_mcf_kernel_stops_at_max_aug(cuda_device):
         flow, inf = mcf_bucket_cuda(*args, max_aug=max_aug)
         flow_r, inf_r = mcf_bucket_reference(*args, max_aug=max_aug)
         assert torch.equal(flow, flow_r) and torch.equal(inf, inf_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 600), (2, 1201), (8, 4097), (8, 1),
+                                   (1, 1), (3, 127), (5, 128), (7, 129),
+                                   (0, 33), (4, 0)])
+def test_reduction_kernel_matches_plain_and_torch_sum(shape, cuda_device):
+    """Count rows up to 2^40 at the run's shapes and at odd ones (one row,
+    one column, widths around the block size, no rows, no columns):
+    bit-identical to the plain version and to torch.sum, and across runs."""
+    rng = np.random.default_rng(sum(shape))
+    rows = torch.from_numpy(rng.integers(0, 2**40, size=shape).astype(
+        np.float64)).to(cuda_device)
+    launches = shard_colsum_cuda.launches
+    out, out2 = shard_colsum_cuda(rows), shard_colsum(rows)
+    torch.cuda.synchronize()
+    assert shard_colsum_cuda.launches == launches + 2 * (shape[1] > 0)
+    assert out.dtype == torch.float64 and tuple(out.shape) == (shape[1],)
+    assert torch.equal(out, out2)
+    assert torch.equal(out, shard_colsum_reference(rows))
+    assert torch.equal(out, torch.sum(rows, dim=0))
+    assert torch.equal(out.cpu(), shard_colsum_reference(rows.cpu()))
+
+
+@pytest.mark.cuda
+def test_reduction_kernel_keeps_row_order(cuda_device):
+    """Non-integer rows, where the order of the additions shows: the plain
+    version's bits (row 0 first)."""
+    rows = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8, 1000)) * 10.0 ** np.arange(8)[:, None]).to(cuda_device)
+    assert torch.equal(shard_colsum_cuda(rows), shard_colsum_reference(rows))
+
+
+@pytest.mark.cuda
+def test_reduction_kernel_rejects_bad_inputs(cuda_device):
+    good = torch.zeros((4, 64), dtype=torch.float64, device=cuda_device)
+    launches = shard_colsum_cuda.launches
+    for bad, exc in ((good.float(), TypeError), (good[:, ::2], ValueError),
+                     (good.t(), ValueError), (good[0], ValueError),
+                     (good.cpu(), ValueError), (good.cpu().numpy(),
+                                                TypeError)):
+        with pytest.raises(exc):
+            shard_colsum_cuda(bad)
+    assert shard_colsum_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,n_devices,mdl", [(0, 4, 1), (1, 4, 1),
+                                                (1, 8, None), (2, 8, None),
+                                                (3, 8, None)])
+def test_sharded_em_bucket_equals_whole_bucket(tier, n_devices, mdl,
+                                               cuda_device):
+    """The bucket cut over the mesh's slots (each on GPU slot modulo the
+    GPU count, its own stream): one launch a slot, and the bits of one
+    launch over the whole bucket, in f64 and f32."""
+    R, C, B = _TIERS[tier]
+    bucket = random_bucket(np.random.default_rng(1000 + tier), B, R, C)
+    mesh = make_mesh(n_devices, mdl=mdl)
+    run = sharded_em_bucket(mesh)
+    for dtype in (torch.float64, torch.float32):
+        args = bucket_to_torch(*bucket, cuda_device, dtype)
+        before = sharded_em_bucket.launches
+        theta, failed = run(*args)
+        whole = em_bucket_cuda(*args)
+        torch.cuda.synchronize()
+        assert sharded_em_bucket.launches == before + mesh.shape["dp"]
+        assert theta.dtype == dtype
+        assert torch.equal(theta, whole[0]) and torch.equal(failed, whole[1])
+    theta_np, failed_np = run(*bucket)  # numpy arrays go over as f64
+    ref = em_bucket_reference(*bucket_to_torch(*bucket, cuda_device,
+                                               torch.float64))
+    torch.testing.assert_close(theta_np, ref[0], rtol=1e-9, atol=1e-9)
+    assert torch.equal(failed_np, ref[1])
