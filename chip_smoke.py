@@ -28,15 +28,19 @@ Phases:
      a candidate exon past the last one, an intron after the last exon, a
      hit with no features, 64-exon isoforms, 16-feature hits, 128
      segments). CUDA-event times.
-  3c. the min-cost-flow kernel against its plain version and
+  3c. the ragged min-cost-flow kernel against its plain version and
      mincostflow.solve_dense, array-equal, on seeded random CMPC problems
-     at the node buckets 64, 128 and 256, with an infeasible problem and
-     an inactive locus. CUDA-event times.
+     of 3, 8, 13, 32, 33, 64, 128 and 256 nodes with an infeasible problem,
+     all in one call (every size class launches) and each size alone (CUDA
+     events, and the time on the card with the launches queued back to
+     back); the augmentation cap against the plain version.
   3d. the shard-row reduction kernel against its plain version and against
      torch.sum(rows, dim=0), the one PyTorch call that computes the same
      function: seeded count rows up to 2^40 at (1, 600), (2, 1201),
      (8, 4097) and (8, 1), bit-identical to both and across two runs; bad
-     inputs refused. CUDA-event times of all three, and the bytes bound.
+     inputs refused. CUDA-event times of all three (the kernel and
+     torch.sum in turns), both device times from torch.profiler, the bytes
+     bound, and the host time of each step of the wrapper's path.
   3e. sharded_em_bucket over a mesh of 4 (mdl 1) and of 8 (mdl 2), every
      slot on this GPU with its own stream, on phase 3's tier-1 and tier-2
      buckets: driven with its launch count set to 0 before and read after,
@@ -61,8 +65,10 @@ Phases:
      (device busy time, each kernel's share, phase report). Each kernel
      is then held against its plain version again, with the same numbers
      as in phase 3, on inputs the main path made: the first full bucket of
-     each EM tier, the first full prep chunk, the largest bucket of each
-     MCF node size. Then the parallel layer, each against the default
+     each EM tier, the first full prep chunk, every MCF problem of the run
+     (in one call) and the largest call alone. The profiled MCF run
+     reports its copies each way and `flow_dp`. Then the parallel layer, each against
+     the default
      `-g -r` body: `--shards 4` with STRAWB_DEVICE_EM=1 (byte for byte;
      repeated under the profiler) and with --fast-em (the fast-em bars),
      EM and reduction launches in both; two CLI processes joined by
@@ -238,6 +244,54 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """The time on the card of one call of fn: CUDA events around `reps`
+    calls queued behind a spin kernel (torch.cuda._sleep, about 30 ms)
+    that keeps the card busy while the host queues them, so the card runs
+    them back to back and the host's pace drops out (the card's own gaps
+    between launches stay in)."""
+    import torch
+    fn()  # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def measured(x, fmt=".4f"):
+    """A device time for a log line."""
+    return "not measured" if x is None else f"{x:{fmt}} ms"
+
+
+def device_ms(fn, reps, pattern):
+    """The device time of one call of fn, from torch.profiler over `reps`
+    calls: the self device time of the kernels whose names match the
+    regular expression `pattern`, over reps (None where the profiler saw
+    none of them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:  # older torch
+            t = e.self_cuda_time_total
+        if re.search(pattern, e.key):
+            us += t
+    return us / reps / 1e3 if us else None
 
 
 def compare_bucket(dev, bucket, what, edge_cases=False, timed=True):
@@ -655,79 +709,129 @@ def pad_mcf_bucket(problems, M, n_inactive=0):
     return cost, has, low, act
 
 
-def compare_mcf(dev, bucket, what, problems=None):
-    """The MCF kernel against its plain version (and, given the problems,
-    against solve_dense) on one padded bucket: array-equal, two runs
-    identical; returns {ms, plain_ms, max_abs_err, infeasible}."""
+# the node counts phase 3c times one by one: the main path's range (3-13),
+# the edges of the kernel's size classes (32 | 33, 128 | 129) and the top
+MCF_SIZES = (3, 8, 13, 32, 33, 64, 128, 256)
+
+
+def flow_problems(seed, sizes, per_size=1):
+    """Seeded CMPC problems (random_cmpc_problem, p_far = min(0.15, 4 / m))
+    of the given node counts, `per_size` of each. The port's tests use it
+    too."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [random_cmpc_problem(rng, m - 2, p_far=min(0.15, 4.0 / m))
+            for m in sizes for _ in range(per_size)]
+
+
+def mcf_bound(x):
+    """The MCF bound of packed problems (a host Packed): the inputs read once
+    at the problems' own sizes (cost and lower int64, has_arc uint8, offset
+    int64, size int32), the flows (int64) and the flags written once; as
+    operations, one relaxation of every arc, at the table's integer rate
+    (the shortest-path rounds it repeats are not counted)."""
+    N, B = x.cost.numel(), len(x.sizes)
+    return bound(int(x.has_arc.sum()), 17 * N + 12 * B + 8 * N + B, "int")
+
+
+def compare_ragged(dev, problems, what, max_aug=None, timed=True):
+    """The ragged MCF kernel against its plain version and (uncapped)
+    mincostflow.solve_dense on `problems`, packed as batched_mcf packs them:
+    array-equal, two runs identical, one launch per size class present.
+    Timed: CUDA-event times of the kernel and the plain version, the
+    kernel's time on the card (queued_ms), and the bound. Returns {ms,
+    device_ms, plain_ms, max_abs_err, infeasible, problems, classes,
+    bound_ms, bound_by, ...}."""
     import numpy as np
     import torch
+    from strawberry_tpu_torch.assembly.cuda_mcf import (
+        CLASSES, MAX_AUG, mcf_ragged_cuda, mcf_ragged_reference,
+        pack_problems, unpack_flows)
     from strawberry_tpu_torch.assembly.mincostflow import solve_dense
-    from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_bucket_cuda,
-                                                        mcf_bucket_reference)
-    args = [torch.from_numpy(a).to(dev) for a in bucket]
-    fk, ik = mcf_bucket_cuda(*args)
-    fk2, ik2 = mcf_bucket_cuda(*args)
-    fr, ir = mcf_bucket_reference(*args)
+    aug = MAX_AUG if max_aug is None else max_aug
+    x = pack_problems(problems, pin=True)
+    xd = x.to(dev)
+    before = dict(mcf_ragged_cuda.class_launches)
+    k1 = mcf_ragged_cuda(xd, aug)
+    k2 = mcf_ragged_cuda(xd, aug)
+    ref = mcf_ragged_reference(xd, aug)
     torch.cuda.synchronize()
-    require(torch.equal(fk, fk2) and torch.equal(ik, ik2),
+    classes = {name: n for (name, _top), (n, _m) in zip(CLASSES,
+                                                          x.classes)}
+    launched = {k: mcf_ragged_cuda.class_launches[k] - before[k]
+                for k in before}
+    require(launched == {k: 2 * (n > 0) for k, n in classes.items()},
+            f"{what}: class launches {launched} for classes {classes}")
+    require(torch.equal(k1.buf, k2.buf),
             f"{what}: MCF kernel not identical across runs")
-    err = (fk - fr).abs().max().item()
-    require(torch.equal(fk, fr) and torch.equal(ik, ir),
+    err = (k1.flow - ref.flow).abs().max().item() if len(k1.flow) else 0
+    require(torch.equal(k1.flow, ref.flow)
+            and torch.equal(k1.infeasible, ref.infeasible),
             f"{what}: MCF kernel differs from the plain version (max abs "
-            f"err {err}, infeasible flags equal: {torch.equal(ik, ir)})")
-    flow, inf = fk.cpu().numpy(), ik.cpu().numpy()
-    for b, p in enumerate(problems or []):
-        host = solve_dense(*[x.copy() for x in p])
-        m = p[0].shape[0]
-        require((host is None) == bool(inf[b]) and (
-            host is None or np.array_equal(host, flow[b, :m, :m])),
-            f"{what}: problem {b} ({m} nodes) differs from solve_dense")
-    require(not inf[~bucket[3]].any() and np.array_equal(
-        flow[~bucket[3]], bucket[2][~bucket[3]]),
-        f"{what}: inactive loci must return lower, feasible")
-    ms = cuda_ms(lambda: mcf_bucket_cuda(*args), reps=5)
-    plain_ms = cuda_ms(lambda: mcf_bucket_reference(*args), reps=1)
-    B, M = bucket[0].shape[:2]
-    # the inputs read once, flow and the flags written once; as operations,
-    # one relaxation of every arc of each active problem, at the table's
-    # integer rate (the shortest-path rounds it repeats are not counted)
-    b = bound(int(bucket[1][bucket[3]].sum()),
-              sum(t.numel() * t.element_size() for t in (*args, fk, ik)),
-              "int")
-    log(f"  {what} {B}x{M}x{M}: {int(inf.sum())} infeasible; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} "
-        f"ms ({b['bound_by']}), array-equal")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": float(err),
-            "infeasible": int(inf.sum()), **b}
+            f"err {err}, infeasible flags equal: "
+            f"{torch.equal(k1.infeasible, ref.infeasible)})")
+    flows = unpack_flows(x, k1.cpu())
+    if max_aug is None:
+        for i, p in enumerate(problems):
+            host = solve_dense(*[a.copy() for a in p])
+            require((host is None) == (flows[i] is None) and (
+                host is None or np.array_equal(host, flows[i])),
+                f"{what}: problem {i} ({p[0].shape[0]} nodes) differs from "
+                "solve_dense")
+    n_inf = sum(f is None for f in flows)
+    if not timed:
+        return {"max_abs_err": float(err), "infeasible": n_inf}
+    out = {"ms": cuda_ms(lambda: mcf_ragged_cuda(xd, aug), reps=20),
+           "plain_ms": cuda_ms(lambda: mcf_ragged_reference(xd, aug), 1),
+           "device_ms": queued_ms(lambda: mcf_ragged_cuda(xd, aug), 5)}
+    b = mcf_bound(x)
+    out.update(max_abs_err=float(err), infeasible=n_inf,
+               problems=len(problems), classes=classes, **b)
+    log(f"  {what}: {len(problems)} problems, sizes {int(x.sizes[0])}-"
+        f"{int(x.sizes[-1])}, classes {classes}, {n_inf} infeasible; kernel "
+        f"{out['ms']:.4f} ms (on the card {out['device_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.4f} ms, bound {b['bound_ms']:.6f} ms "
+        f"({b['bound_by']}), array-equal")
+    return out
 
 
 def check_mcf(dev):
-    """Phase 3c: seeded random CMPC problems at each node bucket (sizes
-    that land in it), an infeasible problem in the first, and an inactive
-    locus in each; returns {ms, plain_ms, max_abs_err, buckets}."""
-    import numpy as np
-    parts = {}
-    for M, B, lo in ((64, 32, 2), (128, 12, 63), (256, 6, 127)):
-        rng = np.random.default_rng(2000 + M)
-        probs = [random_cmpc_problem(rng, int(rng.integers(lo, M - 1)),
-                                     p_far=min(0.15, 4.0 / lo))
-                 for _ in range(B)]
-        if M == 64:
-            probs.append(infeasible_problem())
-        r = compare_mcf(dev, pad_mcf_bucket(probs, M, n_inactive=1),
-                        f"MCF bucket {M}", probs)
-        require(M != 64 or r["infeasible"] >= 1,
-                "the infeasible problem was not found infeasible")
-        parts[f"{B + 1 + (M == 64)}x{M}x{M}"] = r
-    return summed(parts)
+    """Phase 3c: seeded random CMPC problems of every node count in
+    MCF_SIZES, four of each, with the infeasible problem, in one call (every
+    size class: a launch each), against the plain version and solve_dense;
+    then each size alone (one launch), timed; then the augmentation cap
+    (max_aug 0, 1, 3) against the plain version. Returns the mixed call's
+    numbers with `per_size`."""
+    problems = flow_problems(2000, MCF_SIZES, per_size=4)
+    problems.append(infeasible_problem())
+    out = compare_ragged(dev, problems, "MCF seeded sizes, one call")
+    require(out["infeasible"] >= 1,
+            "the infeasible problem was not found infeasible")
+    require(all(out["classes"].values()),
+            f"the seeded sizes left a size class empty: {out['classes']}")
+    out["per_size"] = {}
+    for m in MCF_SIZES:
+        one = [p for p in problems if p[0].shape[0] == m]
+        r = compare_ragged(dev, one, f"MCF seeded, {m} nodes")
+        out["per_size"][m] = {k: r[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "problems")}
+    for max_aug in (0, 1, 3):
+        compare_ragged(dev, problems[:12] + problems[-1:],
+                       f"MCF max_aug={max_aug}", max_aug=max_aug,
+                       timed=False)
+    return out
 
 
 # --------------------------------------------------------------- phase 3d
 def compare_reduce(dev, rows_np, what):
     """The reduction kernel against its plain version and against the one
     PyTorch call that computes the same function, torch.sum(rows, dim=0),
-    on one (N, H) array: bit-identical to both and across two runs; returns
-    {ms, plain_ms, library_ms, max_abs_err, bound_ms, bound_by}."""
+    on one (N, H) array: bit-identical to both and across two runs. The
+    kernel and torch.sum are timed by CUDA events in turns (torch.sum, the
+    kernel, the kernel, torch.sum) and on the card by torch.profiler.
+    Returns {ms, plain_ms, library_ms, turns_ms, device_ms, max_abs_err,
+    bound_ms, bound_by}."""
     import torch
     from strawberry_tpu_torch.parallel.cuda_reduce import (
         shard_colsum_cuda, shard_colsum_reference)
@@ -746,17 +850,78 @@ def compare_reduce(dev, rows_np, what):
     require(torch.equal(out, lib),
             f"{what}: reduction kernel differs from torch.sum(dim=0) (max "
             f"abs err {err})")
-    ms = cuda_ms(lambda: shard_colsum_cuda(rows), reps=200)
+    # in turns: the library call, the kernel, the kernel, the library call
+    t = [cuda_ms(lambda: torch.sum(rows, dim=0), reps=200),
+         cuda_ms(lambda: shard_colsum_cuda(rows), reps=200),
+         cuda_ms(lambda: shard_colsum_cuda(rows), reps=200),
+         cuda_ms(lambda: torch.sum(rows, dim=0), reps=200)]
+    ms, library_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     plain_ms = cuda_ms(lambda: shard_colsum_reference(rows), reps=20)
-    library_ms = cuda_ms(lambda: torch.sum(rows, dim=0), reps=200)
+    dev_ms = reduce_device_ms(rows)
+    dev_ms.update(queued_kernel=queued_ms(lambda: shard_colsum_cuda(rows), 50),
+                  queued_torch_sum=queued_ms(lambda: torch.sum(rows, dim=0),
+                                             50))
     N, H = rows_np.shape
     # every row read once and the sums written once; N - 1 additions a column
     b = bound((N - 1) * H, (N + 1) * H * 8, "f64")
-    log(f"  {what} {N}x{H}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-        f"torch.sum(dim=0) {library_ms:.5f} ms, bound {b['bound_ms']:.7f} "
-        f"ms ({b['bound_by']}), bit-identical to both")
+    log(f"  {what} {N}x{H}: kernel {ms:.5f} ms, torch.sum(dim=0) "
+        f"{library_ms:.5f} ms (in turns: {', '.join(f'{x:.5f}' for x in t)})"
+        f", plain {plain_ms:.5f} ms, bound {b['bound_ms']:.7f} ms "
+        f"({b['bound_by']}); on the card (torch.profiler) kernel "
+        f"{measured(dev_ms['kernel'], '.6f')}, torch.sum "
+        f"{measured(dev_ms['torch.sum'], '.6f')} a call, queued back to back "
+        f"{dev_ms['queued_kernel']:.6f} / {dev_ms['queued_torch_sum']:.6f} "
+        "ms; bit-identical to both")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "turns_ms": t, "device_ms": dev_ms,
             "max_abs_err": float(err), **b}
+
+
+def reduce_device_ms(rows, reps=50):
+    """The time on the card of a call of the reduction kernel and of
+    torch.sum(rows, dim=0) (its reduce kernel), from torch.profiler."""
+    import torch
+    from strawberry_tpu_torch.parallel.cuda_reduce import shard_colsum_cuda
+    return {"kernel": device_ms(lambda: shard_colsum_cuda(rows), reps,
+                                r"\bshard_colsum_kernel\b"),
+            "torch.sum": device_ms(lambda: torch.sum(rows, dim=0), reps,
+                                   r"reduce_kernel")}
+
+
+def wrapper_path_us(rows, reps=2000):
+    """Host microseconds a call of each step on the reduction's path to its
+    launch, and of the whole wrapper and of torch.sum(rows, dim=0), each
+    over `reps` calls by the host clock (the device finishes each launch
+    long before the host makes the next)."""
+    import torch
+    from strawberry_tpu_torch.parallel import cuda_reduce as cr
+    from strawberry_tpu_torch.utils.kernels import stream_handle
+    dev, (N, H) = rows.device, rows.shape
+    out = torch.empty((H,), dtype=rows.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = {
+        "checks": lambda: cr._check(rows),
+        "torch.empty": lambda: torch.empty((H,), dtype=rows.dtype,
+                                           device=dev),
+        "rows.new_empty": lambda: rows.new_empty((H,)),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream_handle": lambda: stream_handle(dev.index),
+        "ctypes call and launch": lambda: cr._launch(
+            rows.data_ptr(), N, H, out.data_ptr(), dev.index, stream),
+        "wrapper": lambda: cr.shard_colsum_cuda(rows),
+        "torch.sum": lambda: torch.sum(rows, dim=0)}
+    res = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) / reps * 1e6
+    log("  the reduction's path, host us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in res.items()))
+    return res
 
 
 def check_reduce(dev):
@@ -786,6 +951,9 @@ def check_reduce(dev):
             "a refused input counted as a launch")
     out = summed(parts)
     out["library_ms"] = sum(r["library_ms"] for r in parts.values())
+    out["wrapper_path_us"] = wrapper_path_us(torch.from_numpy(
+        np.random.default_rng(3002).integers(0, 2**40, size=(8, 4097)).astype(
+            np.float64)).to(dev))
     return out
 
 
@@ -907,7 +1075,7 @@ KERNELS = ("em_bucket", "quant_prep", "mcf_bucket", "shard_reduce")
 KERNEL_FUNCTIONS = {"em_bucket": ("em_warp_kernel", "em_rows_kernel",
                                   "em_strip_kernel"),
                     "quant_prep": ("compat_kernel", "rows_kernel"),
-                    "mcf_bucket": ("mcf_bucket_kernel",),
+                    "mcf_bucket": ("mcf_warp_kernel", "mcf_block_kernel"),
                     "shard_reduce": ("shard_colsum_kernel",)}
 
 
@@ -915,13 +1083,13 @@ def launch_counters():
     """{kernel name: its wrapper} for every kernel the main paths run
     (sharded_em_bucket counts the EM launches it makes itself, over its
     mesh; they are counted under em_bucket too)."""
-    from strawberry_tpu_torch.assembly.cuda_mcf import mcf_bucket_cuda
+    from strawberry_tpu_torch.assembly.cuda_mcf import mcf_ragged_cuda
     from strawberry_tpu_torch.parallel.cuda_reduce import shard_colsum_cuda
     from strawberry_tpu_torch.parallel.mesh import sharded_em_bucket
     from strawberry_tpu_torch.quant.cuda_em import em_bucket_cuda
     from strawberry_tpu_torch.quant.cuda_prep import quant_prep_cuda
     return {"em_bucket": em_bucket_cuda, "quant_prep": quant_prep_cuda,
-            "mcf_bucket": mcf_bucket_cuda, "shard_colsum": shard_colsum_cuda,
+            "mcf_bucket": mcf_ragged_cuda, "shard_colsum": shard_colsum_cuda,
             "sharded_em_bucket": sharded_em_bucket}
 
 
@@ -1019,21 +1187,55 @@ def run_cli(name, argv, env, dispatchers=1):
                            want=want, sample=sample, launches=launches)
 
 
+class CountingMcfCopies:
+    """Counts the MCF route's copies while it is entered: each Packed.to
+    (host to device) and each Flows.cpu (device to host), with its bytes."""
+
+    def __enter__(self):
+        from strawberry_tpu_torch.assembly import cuda_mcf
+        self.counts = dict.fromkeys(("h2d_copies", "h2d_bytes",
+                                     "d2h_copies", "d2h_bytes"), 0)
+        self.saved = to, cpu = cuda_mcf.Packed.to, cuda_mcf.Flows.cpu
+        counts = self.counts
+
+        def counting_to(x, device):
+            counts["h2d_copies"] += 1
+            counts["h2d_bytes"] += x.buf.numel()
+            return to(x, device)
+
+        def counting_cpu(flows):
+            counts["d2h_copies"] += 1
+            counts["d2h_bytes"] += flows.buf.numel()
+            return cpu(flows)
+        cuda_mcf.Packed.to, cuda_mcf.Flows.cpu = counting_to, counting_cpu
+        return self.counts
+
+    def __exit__(self, *exc):
+        from strawberry_tpu_torch.assembly import cuda_mcf
+        cuda_mcf.Packed.to, cuda_mcf.Flows.cpu = self.saved
+
+
 def profiled_run(name, argv, env=None, dispatchers=1):
     """The run again under torch.profiler (device activity only) and the
     pipeline's phase timer: device busy time, each kernel's share of it,
-    and the phase report."""
+    the phase report and each phase's seconds, and the MCF route's copies
+    (count and bytes each way)."""
     from torch.profiler import ProfilerActivity, profile
     from strawberry_tpu_torch.utils import profiling
     profiling.GLOBAL.phases.clear()
     profiling.enable()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                CountingMcfCopies() as copies:
             wall = run_cli(name, argv, env or {}, dispatchers).wall
             phases = profiling.GLOBAL.report()  # before the trace is read
+            phase_s = {k: v.seconds
+                       for k, v in profiling.GLOBAL.phases.items()}
     finally:
         profiling.GLOBAL.enabled = False
     log(phases)
+    if copies["h2d_copies"]:
+        log(f"  {name}: MCF copies {copies}")
     busy = 0.0
     kern = dict.fromkeys(KERNELS, 0.0)
     for e in prof.key_averages():
@@ -1045,13 +1247,14 @@ def profiled_run(name, argv, env=None, dispatchers=1):
             # whole names: the prep's rows_kernel is not em_rows_kernel
             if any(re.search(rf"\b{f}\b", e.key) for f in fns):
                 kern[k] += us / 1e3
+    out = {"wall_s": wall, "phases_s": phase_s, "mcf_copies": copies}
     if busy == 0.0:
         log("  device busy time: not measured (the profiler saw no device "
             "activity)")
-        return {"wall_s": wall, "device_busy_ms": None}
+        return {**out, "device_busy_ms": None}
     log(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} ms "
         f"(kernels {kern} ms), idle share {1 - busy / (wall * 1e3):.4f}")
-    return {"wall_s": wall, "device_busy_ms": busy, "kernel_ms": kern,
+    return {**out, "device_busy_ms": busy, "kernel_ms": kern,
             "idle_share": 1 - busy / (wall * 1e3)}
 
 
@@ -1109,40 +1312,57 @@ def mcf_runs(gtf, bam, g_host):
     """`-g` under STRAWB_DEVICE_MCF=1, against the same run with
     STRAWB_FORCE_HOST=1 added (every flow on mincostflow.solve_dense): the
     same GTF body, device problems and MCF launches. Returns ({name: Run},
-    {node bucket: the run's largest bucket as numpy arrays})."""
+    the problems of each call the MCF run packed, as [(cost, has_arc,
+    lower)] lists)."""
+    import numpy as np
     from strawberry_tpu_torch.assembly import device as adev
-    buckets = {}
-    mcf_bucket = adev.mcf_bucket
+    calls = []
+    pack = adev.pack_problems
 
-    def recording_bucket(*args):
-        M = args[0].shape[1]
-        if M not in buckets or len(args[0]) > len(buckets[M][0]):
-            buckets[M] = args  # kept on the card; read after the run
-        return mcf_bucket(*args)
+    def recording_pack(problems, pin=False):
+        calls.append([tuple(np.array(a) for a in p) for p in problems])
+        return pack(problems, pin=pin)
 
     argv = ["-g", gtf, "--fr", bam]
-    adev.mcf_bucket = recording_bucket
+    adev.pack_problems = recording_pack
     try:
         mcf = run_cli("g_mcf", argv, {"STRAWB_DEVICE_MCF": "1"})
     finally:
-        adev.mcf_bucket = mcf_bucket
+        adev.pack_problems = pack
     host = run_cli("g_mcf_force_host", argv, {"STRAWB_DEVICE_MCF": "1",
                                              "STRAWB_FORCE_HOST": "1"})
     fs = mcf.sample.flow_stats
-    require(fs.get("device", 0) > 0 and mcf.launches["mcf_bucket"] > 0,
+    require(fs.get("device", 0) > 0 and fs.get("host", 1) == 0
+            and mcf.launches["mcf_bucket"] > 0,
             f"STRAWB_DEVICE_MCF=1: {fs}, {mcf.launches['mcf_bucket']} MCF "
-            "launches")
+            "launches; every problem must go through the kernel")
+    require(sum(map(len, calls)) == fs["device"],
+            f"recorded {sum(map(len, calls))} problems of {fs['device']}")
     require(host.sample.flow_stats.get("device", 1) == 0,
             "STRAWB_FORCE_HOST=1 sent flow problems to the card")
     require_no_launches(host, "STRAWB_DEVICE_MCF=1 STRAWB_FORCE_HOST=1")
     require(body(mcf.out) == body(host.out),
             "STRAWB_DEVICE_MCF=1: GTF body differs from the host solver's")
-    buckets = {M: [a.cpu().numpy() for a in b] for M, b in buckets.items()}
     same = body(mcf.out) == body(g_host.out)
+    sizes = np.array([p[0].shape[0] for c in calls for p in c])
     log(f"  STRAWB_DEVICE_MCF=1: GTF body byte-identical to the host "
-        f"solver's; to the default (lemon NetworkSimplex) run's: {same}")
+        f"solver's; to the default (lemon NetworkSimplex) run's: {same}; "
+        f"{len(sizes)} problems in {len(calls)} calls (largest call "
+        f"{max(map(len, calls))}), nodes median {np.median(sizes):.0f}, p99 "
+        f"{np.percentile(sizes, 99):.0f}, max {sizes.max()}")
     return {"g_mcf": mcf, "g_mcf_force_host": host,
-            "mcf_same_as_default": same}, buckets
+            "mcf_same_as_default": same}, calls
+
+
+def main_path_mcf(dev, calls):
+    """The MCF kernel on the problems the main path made: all of them in
+    one call and the largest call alone, each against the plain version
+    and solve_dense (array-equal), timed."""
+    every = [p for c in calls for p in c]
+    return {"all": compare_ragged(
+        dev, every, f"main-path MCF, all {len(every)} problems in one call"),
+        "largest_call": compare_ragged(dev, max(calls, key=len),
+                                       "main-path MCF, the largest call")}
 
 
 # Runs cli.main(argv) once in a fresh process, with jax and the JAX package
@@ -1418,7 +1638,7 @@ def end_to_end(n_frags, dev):
 
     g_host = run_cli("g_host", ["-g", gtf, "--fr", bam], {})
     require_no_launches(g_host, "default -g")
-    mcfs, mcf_buckets = mcf_runs(gtf, bam, g_host)
+    mcfs, mcf_calls = mcf_runs(gtf, bam, g_host)
 
     prof_prep = profiled_run("g_r_prep_all_profiled", base,
                              {"STRAWB_DEVICE_PREP": "all"})
@@ -1437,17 +1657,14 @@ def end_to_end(n_frags, dev):
     par = parallel_runs(base, host, fast, ref)
 
     log("  the main path's own inputs: the first full bucket of each EM "
-        "tier, the first full prep chunk, the largest bucket of each MCF "
-        "node size, the rows the sharded and the 2-process run summed:")
+        "tier, the first full prep chunk, every MCF problem, the rows the "
+        "sharded and the 2-process run summed:")
     real = {"x".join(map(str, b[0].shape)):  # F's B x R x C
             compare_bucket(dev, b, f"main-path tier {t}")
             for t, b in sorted(fast.d.buckets.items())}
     require(real, "--fast-em filled no tier bucket")
     real_prep = compare_prep(dev, *prep_chunk, "main-path prep chunk")
-    real_mcf = {f"{b[0].shape[0]}x{M}x{M}": compare_mcf(
-        dev, b, f"main-path MCF bucket {M}") for M, b in
-        sorted(mcf_buckets.items())}
-    require(real_mcf, "STRAWB_DEVICE_MCF=1 launched no bucket")
+    real_mcf = main_path_mcf(dev, mcf_calls)
     real_rows = {("2 processes " if k == "dist" else "--shards 4 ")
                  + "x".join(map(str, r.shape)):
                  compare_reduce(dev, r, "main-path rows, " + (
@@ -1455,7 +1672,7 @@ def end_to_end(n_frags, dev):
                  for k, r in par.pop("rows").items()}
 
     return {"main_path_buckets": real, "main_path_prep_chunk": real_prep,
-            "main_path_mcf_buckets": real_mcf, "main_path_rows": real_rows,
+            "main_path_mcf": real_mcf, "main_path_rows": real_rows,
             "parallel": par, "profiled_fast_em": prof,
             "profiled_prep_all": prof_prep, "profiled_mcf": prof_mcf,
             "walls_s": {"g_r_host": host.wall, "g_r_fast_em": fast.wall,
@@ -1479,6 +1696,7 @@ def end_to_end(n_frags, dev):
                          "quant_prep_budget":
                              preps["budget"].launches["quant_prep"],
                          "mcf_bucket": mcfs["g_mcf"].launches["mcf_bucket"]},
+            "mcf_calls": len(mcf_calls),
             "tpm_p99": p99, "device_em_byte_identical": dev_same,
             "mcf_same_as_default": mcfs["mcf_same_as_default"]}
 
@@ -1582,7 +1800,7 @@ def main():
          "tolerance": "array-equal to the plain version and to "
                       "mincostflow.solve_dense; two runs identical",
          "launches": e2e["launches"]["mcf_bucket"], **mcf,
-         "main_path_buckets": e2e["main_path_mcf_buckets"]},
+         "main_path": e2e["main_path_mcf"]},
         {"name": "shard_colsum", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/shard_reduce.cu",
          "replaces": "strawberry_tpu/parallel/collectives.py:26",

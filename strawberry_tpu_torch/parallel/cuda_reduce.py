@@ -26,6 +26,8 @@ import ctypes as C
 
 import torch
 
+from ..utils.kernels import Entry, stream_handle
+
 
 def _check(rows):
     if not isinstance(rows, torch.Tensor):
@@ -50,28 +52,29 @@ def shard_colsum_reference(rows):
     return acc
 
 
+_launch = Entry("shard_reduce", "strawb_shard_colsum",
+                [C.c_void_p, C.c_int, C.c_longlong, C.c_void_p, C.c_int,
+                 C.c_void_p])
+
+
 def shard_colsum_cuda(rows):
-    """Launch csrc/shard_reduce.cu on PyTorch's current stream; returns
-    (H,) float64 without synchronizing. Counts its launches in
-    `shard_colsum_cuda.launches`. Refuses an input that is not a contiguous
-    float64 (N, H) tensor on a GPU rather than converting it."""
+    """Launch csrc/shard_reduce.cu on PyTorch's current stream of the rows'
+    device; returns (H,) float64 without synchronizing. Counts its launches
+    in `shard_colsum_cuda.launches`. Refuses an input that is not a
+    contiguous float64 (N, H) tensor on a GPU rather than converting it.
+    The entry is bound once and the C side switches device only when the
+    rows' device is not the current one, so no device guard is entered,
+    and the stream is the raw handle (`utils.kernels.stream_handle`)."""
     _check(rows)
-    if not rows.is_cuda:
-        raise ValueError(f"shard_colsum_cuda needs a CUDA tensor, got "
-                         f"{rows.device}")
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"shard_colsum_cuda needs a CUDA tensor, got {dev}")
     N, H = rows.shape
-    out = torch.empty((H,), dtype=rows.dtype, device=rows.device)
+    out = torch.empty((H,), dtype=rows.dtype, device=dev)
     if H == 0:
         return out
-    from ..utils import kernels
-    lib = kernels.load("shard_reduce")
-    fn = lib.strawb_shard_colsum
-    fn.restype = C.c_int
-    fn.argtypes = [C.c_void_p, C.c_int, C.c_longlong, C.c_void_p, C.c_void_p]
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rows.data_ptr(), N, H, out.data_ptr(), stream)
-    kernels.check(lib, err, "shard_colsum launch")
+    _launch(rows.data_ptr(), N, H, out.data_ptr(), dev.index,
+            stream_handle(dev.index))
     shard_colsum_cuda.launches += 1
     return out
 

@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.kernels import Entry
 from ..utils.torchsetup import to_device  # also sets full-f32 matmuls
 
 MAX_ITER = 1000
@@ -118,23 +119,22 @@ def em_bucket_cuda(F_raw, u, theta0, valid, active):
     failed = torch.empty((B,), dtype=torch.bool, device=F_raw.device)
     if B == 0:
         return theta, failed
-    from ..utils import kernels
-    lib = kernels.load("em_bucket")
-    fn = lib.strawb_em_bucket_f64 if F_raw.dtype == torch.float64 \
-        else lib.strawb_em_bucket_f32
-    fn.restype = C.c_int
-    fn.argtypes = [C.c_void_p] * 7 + [C.c_int] * 4 + [C.c_void_p]
+    launch = _launch[F_raw.dtype]
     with torch.cuda.device(F_raw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(F_raw.data_ptr(), u.data_ptr(), theta0.data_ptr(),
-                 valid.data_ptr(), active.data_ptr(), theta.data_ptr(),
-                 failed.data_ptr(), B, R, C_, MAX_ITER, stream)
-    kernels.check(lib, err, "em_bucket launch")
+        launch(F_raw.data_ptr(), u.data_ptr(), theta0.data_ptr(),
+               valid.data_ptr(), active.data_ptr(), theta.data_ptr(),
+               failed.data_ptr(), B, R, C_, MAX_ITER,
+               torch.cuda.current_stream().cuda_stream)
     em_bucket_cuda.launches += 1
     return theta, failed
 
 
 em_bucket_cuda.launches = 0
+_ARGS = [C.c_void_p] * 7 + [C.c_int] * 4 + [C.c_void_p]
+_launch = {torch.float64: Entry("em_bucket", "strawb_em_bucket_f64", _ARGS),
+           torch.float32: Entry("em_bucket", "strawb_em_bucket_f32", _ARGS)}
+_plan = Entry("em_bucket", "strawb_em_bucket_plan",
+              [C.c_int] * 4 + [C.POINTER(C.c_int)])
 
 PLAN_FIELDS = ("kernel", "ctas", "threads", "ctas_per_locus", "rows_per_cta",
                "smem_bytes", "max_active_clusters")
@@ -146,14 +146,8 @@ def em_bucket_plan(B, R, cols, dtype):
     for tier 3), CTAs, threads a CTA, CTAs a locus (the cluster size),
     rows a CTA, dynamic shared memory, and how many such clusters the card
     holds at once. Needs a GPU."""
-    from ..utils import kernels
-    lib = kernels.load("em_bucket")
-    fn = lib.strawb_em_bucket_plan
-    fn.restype = C.c_int
-    fn.argtypes = [C.c_int] * 4 + [C.POINTER(C.c_int)]
     out = (C.c_int * len(PLAN_FIELDS))()
-    kernels.check(lib, fn(torch.empty((), dtype=dtype).element_size(), B, R,
-                          cols, out), "em_bucket plan")
+    _plan(torch.empty((), dtype=dtype).element_size(), B, R, cols, out)
     plan = dict(zip(PLAN_FIELDS, out))
     plan["kernel"] = ("warp", "rows", "strip")[plan["kernel"]]
     return plan

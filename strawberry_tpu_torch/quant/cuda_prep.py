@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.kernels import Entry
+
 F_MAX = 16    # features per hit
 E_MAX = 64    # exons per isoform
 S_MAX = 128   # disjoint segments per locus
@@ -187,22 +189,17 @@ def quant_prep_cuda(x: PrepInputs, P: int):
                        device=x.goff.device)
     if P == 0 and H == 0:
         return compat, rows
-    from ..utils import kernels
-    lib = kernels.load("quant_prep")
-    fn = lib.strawb_quant_prep
-    fn.restype = C.c_int
-    fn.argtypes = [C.c_void_p] * 17 + [C.c_int] * 5 + [C.c_void_p] * 3
     with torch.cuda.device(x.goff.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[t.data_ptr() for t in x], P, H, x.gcode.shape[0],
-                 x.ni.shape[0], x.iso_idx.shape[0], compat.data_ptr(),
-                 rows.data_ptr(), stream)
-    kernels.check(lib, err, "quant_prep launch")
+        _launch(*[t.data_ptr() for t in x], P, H, x.gcode.shape[0],
+                x.ni.shape[0], x.iso_idx.shape[0], compat.data_ptr(),
+                rows.data_ptr(), torch.cuda.current_stream().cuda_stream)
     quant_prep_cuda.launches += 1
     return compat, rows
 
 
 quant_prep_cuda.launches = 0
+_launch = Entry("quant_prep", "strawb_quant_prep",
+                [C.c_void_p] * 17 + [C.c_int] * 5 + [C.c_void_p] * 3)
 
 
 def quant_prep(x: PrepInputs, P: int):

@@ -17,6 +17,8 @@ import subprocess
 import threading
 from typing import Dict
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -96,3 +98,48 @@ def check(lib: C.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.strawb_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+# PyTorch's C call for the current stream's raw handle, where it has one
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(device_index: int) -> int:
+    """The cudaStream_t of PyTorch's current stream on a GPU, as an int:
+    the raw handle straight from PyTorch's C layer where it has the call
+    (no Python Stream object), else through torch.cuda.current_stream."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
+class Entry:
+    """One C entry point of csrc/<name>.cu that returns a cudaError_t,
+    bound once: the first call builds and loads the library and sets the
+    function's prototype, every later call goes straight to ctypes with no
+    lock and no prototype to set. A nonzero return raises RuntimeError.
+
+        launch = Entry("shard_reduce", "strawb_shard_colsum",
+                       [C.c_void_p, C.c_int, ...])
+        launch(rows.data_ptr(), N, ...)
+    """
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name, self.symbol, self.argtypes = name, symbol, list(argtypes)
+        self._lib = self._fn = None
+
+    def _bind(self):
+        """The bound ctypes function (built and loaded on first use)."""
+        if self._fn is None:
+            lib = load(self.name)
+            fn = getattr(lib, self.symbol)
+            fn.restype = C.c_int
+            fn.argtypes = self.argtypes
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        fn = self._fn or self._bind()
+        err = fn(*args)
+        if err:
+            check(self._lib, err, self.symbol)

@@ -5,8 +5,9 @@ a thread block cluster at tier 3), on edge-case buckets and at odd shapes
 on either side of each specialization's limits, with f64 bit-identical
 across runs; quant prep
 (csrc/quant_prep.cu) on seeded synthetic chunks, the min-cost flow
-(csrc/mcf_bucket.cu) at the three node buckets, and the shard-row
-reduction (csrc/shard_reduce.cu) with the sharded EM bucket over it. Needs an NVIDIA GPU and
+(csrc/mcf_bucket.cu) on ragged batches that take every size class, and
+the shard-row reduction (csrc/shard_reduce.cu) with the sharded EM bucket
+over it; the wrappers' entries bound once. Needs an NVIDIA GPU and
 nvcc; skips elsewhere. This file imports no jax, so on a machine without jax it
 runs on its own:
 
@@ -21,13 +22,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (infeasible_problem, pad_mcf_bucket, prep_inputs,
-                        random_bucket, random_cmpc_problem, special_bucket,
-                        synthetic_prep_chunk)
+from chip_smoke import (flow_problems, infeasible_problem, prep_inputs,
+                        random_bucket, special_bucket, synthetic_prep_chunk)
 from strawberry_tpu.assembly.mincostflow import solve_dense
 from strawberry_tpu.quant.em import em_run
-from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_bucket_cuda,
-                                                    mcf_bucket_reference)
+from strawberry_tpu_torch.assembly.cuda_mcf import (
+    CLASSES, mcf_ragged, mcf_ragged_cuda, mcf_ragged_reference,
+    pack_problems, unpack_flows)
+from strawberry_tpu_torch.parallel import cuda_reduce
 from strawberry_tpu_torch.parallel.cuda_reduce import (
     shard_colsum, shard_colsum_cuda, shard_colsum_reference)
 from strawberry_tpu_torch.parallel.mesh import make_mesh, sharded_em_bucket
@@ -233,41 +235,136 @@ def test_prep_kernels_reject_bad_inputs(cuda_device):
         quant_prep_cuda(prep_inputs(arrays, tables, "cpu"), P)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,B,lo", [(64, 16, 2), (128, 6, 63), (256, 3, 127)])
-def test_mcf_kernel_matches_plain_and_solve_dense(M, B, lo, cuda_device):
-    rng = np.random.default_rng(M)
-    problems = [random_cmpc_problem(rng, int(rng.integers(lo, M - 1)),
-                                    p_far=min(0.15, 4.0 / lo))
-                for _ in range(B)] + [infeasible_problem()]
-    bucket = pad_mcf_bucket(problems, M, n_inactive=1)
-    args = [torch.from_numpy(a).to(cuda_device) for a in bucket]
-    launches = mcf_bucket_cuda.launches
-    flow, inf = mcf_bucket_cuda(*args)
-    flow_r, inf_r = mcf_bucket_reference(*args)
+RAGGED_SIZES = (3, 8, 13, 31, 32, 33, 64, 65, 128, 200, 256)
+
+
+def ragged_mix(seed=40):
+    """Two seeded problems of each size in RAGGED_SIZES and the infeasible
+    one, in a shuffled order: every size class, and the edges between
+    them, in one call."""
+    problems = flow_problems(seed, RAGGED_SIZES, per_size=2)
+    problems.append(infeasible_problem())
+    rng = np.random.default_rng(seed)
+    return [problems[i] for i in rng.permutation(len(problems))]
+
+
+def solve_packed(x, device, max_aug=None):
+    """Kernel and plain version on packed problems x (on the host): the
+    two results and the class launches the kernel made."""
+    xd = x.to(device)
+    before = dict(mcf_ragged_cuda.class_launches)
+    args = () if max_aug is None else (max_aug,)
+    out = mcf_ragged_cuda(xd, *args)
+    ref = mcf_ragged_reference(xd, *args)
     torch.cuda.synchronize()
-    assert mcf_bucket_cuda.launches == launches + 1
-    assert torch.equal(flow, flow_r) and torch.equal(inf, inf_r)
-    flow, inf = flow.cpu().numpy(), inf.cpu().numpy()
-    for b, p in enumerate(problems):
-        host = solve_dense(*[x.copy() for x in p])
-        assert (host is None) == bool(inf[b]), b
-        m = p[0].shape[0]
-        if host is not None:
-            np.testing.assert_array_equal(flow[b, :m, :m], host)
-    assert inf[B] and not inf[-1]
+    launched = {k: mcf_ragged_cuda.class_launches[k] - before[k]
+                for k in before}
+    return out, ref, launched
 
 
 @pytest.mark.cuda
-def test_mcf_kernel_stops_at_max_aug(cuda_device):
-    rng = np.random.default_rng(3)
-    problems = [random_cmpc_problem(rng, 40) for _ in range(4)]
-    args = [torch.from_numpy(a).to(cuda_device)
-            for a in pad_mcf_bucket(problems, 64)]
-    for max_aug in (0, 1, 5):
-        flow, inf = mcf_bucket_cuda(*args, max_aug=max_aug)
-        flow_r, inf_r = mcf_bucket_reference(*args, max_aug=max_aug)
-        assert torch.equal(flow, flow_r) and torch.equal(inf, inf_r)
+def test_ragged_mcf_matches_plain_and_solve_dense(cuda_device):
+    """Every size class in one call: array-equal to the plain version and
+    to solve_dense, the infeasible problem flagged, one launch a class."""
+    problems = ragged_mix()
+    x = pack_problems(problems, pin=True)
+    launches = mcf_ragged_cuda.launches
+    out, ref, launched = solve_packed(x, cuda_device)
+    assert mcf_ragged_cuda.launches == launches + len(CLASSES)
+    assert launched == {"warp": 1, "block": 1, "block_global": 1}
+    assert torch.equal(out.flow, ref.flow)
+    assert torch.equal(out.infeasible, ref.infeasible)
+    flows = unpack_flows(x, out.cpu())
+    for i, p in enumerate(problems):
+        host = solve_dense(*[a.copy() for a in p])
+        assert (host is None) == (flows[i] is None), i
+        if host is not None:
+            np.testing.assert_array_equal(flows[i], host)
+    assert sum(f is None for f in flows) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,classes", [
+    ((3, 8, 13), {"warp": 1, "block": 0, "block_global": 0}),
+    ((31, 32), {"warp": 1, "block": 0, "block_global": 0}),
+    ((33, 64, 65, 128), {"warp": 0, "block": 1, "block_global": 0}),
+    ((129, 256), {"warp": 0, "block": 0, "block_global": 1}),
+    ((8, 200), {"warp": 1, "block": 0, "block_global": 1})])
+def test_ragged_mcf_size_class_paths(sizes, classes, cuda_device):
+    """Each path alone and in pairs: only the classes present launch, and
+    each matches the plain version and solve_dense."""
+    problems = flow_problems(sum(sizes), sizes, per_size=3)
+    x = pack_problems(problems)
+    out, ref, launched = solve_packed(x, cuda_device)
+    assert launched == classes
+    assert torch.equal(out.buf, ref.buf)
+    for f, p in zip(unpack_flows(x, out.cpu()), problems):
+        np.testing.assert_array_equal(f, solve_dense(*[a.copy() for a in p]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_aug", [0, 1, 3, 7])
+def test_ragged_mcf_stops_at_max_aug(max_aug, cuda_device):
+    """The augmentation cap on every class: the plain version's flows, and
+    the infeasible problem flagged only once an augmentation has run."""
+    x = pack_problems(ragged_mix(41))
+    out, ref, _launched = solve_packed(x, cuda_device, max_aug)
+    assert torch.equal(out.flow, ref.flow)
+    assert torch.equal(out.infeasible, ref.infeasible)
+    assert int(out.infeasible.sum()) == (max_aug > 0)
+
+
+@pytest.mark.cuda
+def test_ragged_mcf_two_runs_identical(cuda_device):
+    xd = pack_problems(ragged_mix(42)).to(cuda_device)
+    a, b = mcf_ragged_cuda(xd), mcf_ragged(xd)
+    torch.cuda.synchronize()
+    assert torch.equal(a.buf, b.buf)
+
+
+@pytest.mark.cuda
+def test_ragged_mcf_rejects_bad_inputs(cuda_device):
+    """Wrong types, shapes, devices, unsorted or out-of-range sizes: refused
+    before any launch."""
+    import dataclasses
+    x = pack_problems(flow_problems(3, (5, 40, 140)))
+    xd = x.to(cuda_device)
+    launches = mcf_ragged_cuda.launches
+    bad = [dataclasses.replace(xd, cost=xd.cost.int()),
+           dataclasses.replace(xd, lower=xd.lower[:-1]),
+           dataclasses.replace(xd, has_arc=xd.has_arc.bool()),
+           dataclasses.replace(xd, size=xd.size.cpu()),
+           dataclasses.replace(xd, offset=torch.stack([xd.offset] * 2,
+                                                      1)[:, 0]),
+           dataclasses.replace(xd, sizes=x.sizes[::-1].copy()),
+           dataclasses.replace(xd, sizes=np.array([5, 40, 300], np.int32)),
+           x]
+    for y in bad[:-1]:
+        with pytest.raises(ValueError):
+            mcf_ragged_cuda(y)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mcf_ragged_cuda(x)
+    assert mcf_ragged_cuda.launches == launches
+    assert not any(mcf_ragged_cuda(pack_problems([]).to(cuda_device)).buf)
+
+
+@pytest.mark.cuda
+def test_wrappers_bind_their_entries_once(cuda_device):
+    """The reduction's entry is bound at its first call and reused: the
+    same ctypes function, the same bits as the plain loop and torch.sum,
+    and a launch counted a call."""
+    rows = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 2**40, size=(8, 4097)).astype(np.float64)).to(cuda_device)
+    first = shard_colsum_cuda(rows)
+    fn = cuda_reduce._launch._fn
+    launches = shard_colsum_cuda.launches
+    again = [shard_colsum_cuda(rows) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fn is not None and cuda_reduce._launch._fn is fn
+    assert shard_colsum_cuda.launches == launches + 3
+    for out in [first] + again:
+        assert torch.equal(out, shard_colsum_reference(rows))
+        assert torch.equal(out, torch.sum(rows, dim=0))
 
 
 @pytest.mark.cuda
