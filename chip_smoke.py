@@ -27,7 +27,8 @@ Phases:
      a seeded synthetic chunk that hits every edge case (padded features,
      a candidate exon past the last one, an intron after the last exon, a
      hit with no features, 64-exon isoforms, 16-feature hits, 128
-     segments). CUDA-event times.
+     segments). CUDA-event times, and the time on the card with the calls
+     queued back to back.
   3c. the ragged min-cost-flow kernel against its plain version and
      mincostflow.solve_dense, array-equal, on seeded random CMPC problems
      of 3, 8, 13, 32, 33, 64, 128 and 256 nodes with an infeasible problem,
@@ -78,6 +79,22 @@ Phases:
      process (byte for byte, no launch, no CUDA context in the parent at
      the forks). The reduction kernel is held once more on the rows the
      sharded and the 2-process run summed.
+  5. the STRAWB_TRACE_DIR trace held against the wrappers' launch counts:
+     `-g -r --fast-em`, `-g -r` with STRAWB_DEVICE_PREP=all, `-g` with
+     STRAWB_DEVICE_MCF=1 and `-g -r --shards 4` with STRAWB_DEVICE_EM=1,
+     each in a fresh process with its own trace directory (the seconds
+     spent starting and stopping the trace reported). Each must give
+     the GTF body of its phase-4 twin and write one Chrome trace that holds,
+     for every __global__ function of the four kernel sources, as many
+     kernel events as the wrappers counted; the device busy time and idle
+     share read from each trace are printed beside the profiled reruns'.
+     Then a traced `-p 2` (the default's body, one trace of the host alone,
+     no CUDA context at the forks), and launches made right after a trace
+     starts (phase 3c's 256-node MCF launch, 100 reduction launches) under
+     the port's trace and under torch.profiler with CUDA activity alone, in
+     a fresh process (held: every launch in the trace) and in this one
+     (recorded with the process's age: torch.profiler drops such kernel
+     records in an old process, see utils/profiling.py).
 
 The prep and MCF times come with their bounds too. The line before the
 last is the JSON kernel report; the last line is
@@ -622,8 +639,9 @@ def prep_bound(x, arrays, outputs):
 
 def compare_prep(dev, arrays, tables, P, what):
     """The prep kernels against their plain version on one chunk:
-    array-equal, two runs identical; returns {ms, plain_ms, max_abs_err,
-    bound_ms, bound_by}."""
+    array-equal, two runs identical; returns {ms (CUDA events over
+    back-to-back calls), device_ms (the time on the card, queued_ms),
+    plain_ms, max_abs_err, bound_ms, bound_by}."""
     import torch
     from strawberry_tpu_torch.quant.cuda_prep import (quant_prep_cuda,
                                                       quant_prep_reference)
@@ -643,14 +661,15 @@ def compare_prep(dev, arrays, tables, P, what):
     require(0 < n_ok < P, f"{what}: {n_ok} of {P} pairs compatible; the "
             "chunk must have both")
     ms = cuda_ms(lambda: quant_prep_cuda(x, P), reps=20)
+    dev_ms = queued_ms(lambda: quant_prep_cuda(x, P), reps=20)
     plain_ms = cuda_ms(lambda: quant_prep_reference(x, P), reps=3)
     b = prep_bound(x, arrays, (ck, rk))
     log(f"  {what}: {P} pairs ({n_ok} compatible), {len(rk)} hits, "
-        f"{len(arrays['ni'])} loci: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}),"
-        f" array-equal")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": float(err),
-            "pairs": P, "hits": len(rk), **b}
+        f"{len(arrays['ni'])} loci: kernel {ms:.4f} ms (on the card "
+        f"{dev_ms:.6f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}), array-equal")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "max_abs_err": float(err), "pairs": P, "hits": len(rk), **b}
 
 
 # --------------------------------------------------------------- phase 3c
@@ -1093,6 +1112,21 @@ def launch_counters():
             "sharded_em_bucket": sharded_em_bucket}
 
 
+def reset_counts(counters):
+    """Set every launch count of the wrappers to 0, those of each
+    __global__ function too."""
+    for w in counters.values():
+        w.launches = 0
+        for fn in getattr(w, "function_launches", {}):
+            w.function_launches[fn] = 0
+
+
+def function_counts(counters):
+    """{__global__ function: the launches the wrappers counted}."""
+    return {fn: n for w in counters.values()
+            for fn, n in getattr(w, "function_launches", {}).items()}
+
+
 def run_cli(name, argv, env, dispatchers=1):
     """One CLI run in this process, with every launch count set to 0 just
     before it and read just after it. Returns the GTF path, the wall, the
@@ -1144,8 +1178,7 @@ def run_cli(name, argv, env, dispatchers=1):
     try:
         import torch
         torch.cuda.synchronize()
-        for w in counters.values():
-            w.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         rc = cli.main(argv + ["-o", out, "-T", out[:-4] + ".log"])
         torch.cuda.synchronize()
@@ -1367,8 +1400,10 @@ def main_path_mcf(dev, calls):
 
 # Runs cli.main(argv) once in a fresh process, with jax and the JAX package
 # blocked from import, and prints as JSON its exit code, its wall, every
-# kernel's launch count, the EM dispatchers' device and host counts, whether
-# CUDA had been initialized at each fork the process made and at its end.
+# kernel's launch count (and each __global__ function's), the EM
+# dispatchers' device and host counts, whether CUDA had been initialized at
+# each fork the process made and at its end, and the seconds spent
+# starting and stopping a STRAWB_TRACE_DIR trace (of the stop, exporting).
 # With SMOKE_SAVE_ROWS=<path> it saves the rows it hands to the reduction.
 _CLI_RUNNER = """
 import json, os, sys, time
@@ -1397,6 +1432,20 @@ if save:
         np.save(save, rows.cpu().numpy())
         return colsum(rows)
     cuda_reduce.shard_colsum = saving_colsum
+from strawberry_tpu_torch.utils import profiling
+trace_s = {"start": 0.0, "stop": 0.0, "export": 0.0}
+def timed(key, fn):
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            trace_s[key] += time.perf_counter() - t
+    return run
+profiling.GLOBAL.start_trace = timed("start", profiling.GLOBAL.start_trace)
+profiling.GLOBAL.stop_trace = timed("stop", profiling.GLOBAL.stop_trace)
+torch.profiler.profile.export_chrome_trace = timed(
+    "export", torch.profiler.profile.export_chrome_trace)
 counters = chip_smoke.launch_counters()
 t0 = time.perf_counter()
 rc = cli.main(json.loads(sys.argv[1]))
@@ -1404,8 +1453,10 @@ if torch.cuda.is_initialized():
     torch.cuda.synchronize()
 print(json.dumps({"rc": rc, "wall_s": time.perf_counter() - t0,
                   "launches": {k: w.launches for k, w in counters.items()},
+                  "function_launches": chip_smoke.function_counts(counters),
                   "em_split": split, "cuda_at_fork": forks,
-                  "cuda_initialized": torch.cuda.is_initialized()}))
+                  "cuda_initialized": torch.cuda.is_initialized(),
+                  "trace_s": trace_s}))
 """
 PROCESS_TIMEOUT_S = 600
 
@@ -1568,7 +1619,7 @@ def parallel_runs(base, host, fast, ref):
     log(f"  -p 2: wall {p_wall:.3f} s with the process's start; GTF body "
         "byte-identical to the default's; no kernel launched, no CUDA "
         "context in the parent")
-    return {"rows": rows_seen, "profiled_shards4": prof,
+    return {"rows": rows_seen, "profiled_shards4": prof, "out": sh.out,
             "walls_s": {"g_r_shards4_device_em": sh.wall,
                         "g_r_shards4_fast_em": shf.wall,
                         "g_r_dist2_device_em": dist_wall,
@@ -1655,6 +1706,9 @@ def end_to_end(n_frags, dev):
             "-g --fast-em produced no finite TPMs")
 
     par = parallel_runs(base, host, fast, ref)
+    outs = {"g_r_host": host.out, "g_r_fast_em": fast.out,
+            "g_r_prep_all": preps["all"].out, "g_mcf": mcfs["g_mcf"].out,
+            "g_r_shards4_device_em": par.pop("out")}
 
     log("  the main path's own inputs: the first full bucket of each EM "
         "tier, the first full prep chunk, every MCF problem, the rows the "
@@ -1671,7 +1725,8 @@ def end_to_end(n_frags, dev):
                      "2 processes" if k == "dist" else "--shards 4"))
                  for k, r in par.pop("rows").items()}
 
-    return {"main_path_buckets": real, "main_path_prep_chunk": real_prep,
+    return {"outs": outs,
+            "main_path_buckets": real, "main_path_prep_chunk": real_prep,
             "main_path_mcf": real_mcf, "main_path_rows": real_rows,
             "parallel": par, "profiled_fast_em": prof,
             "profiled_prep_all": prof_prep, "profiled_mcf": prof_mcf,
@@ -1699,6 +1754,241 @@ def end_to_end(n_frags, dev):
             "mcf_calls": len(mcf_calls),
             "tpm_p99": p99, "device_em_byte_identical": dev_same,
             "mcf_same_as_default": mcfs["mcf_same_as_default"]}
+
+
+# --------------------------------------------------------------- phase 5
+def read_trace(path):
+    """A Chrome trace's kernel events of every __global__ function of
+    KERNEL_FUNCTIONS (whole names, as profiled_run matches them), its
+    device busy time (the kernels', copies' and sets' durations summed, as
+    profiled_run sums the profiler's device times), its event count and
+    the names of its phase ranges."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {fn: 0 for fns in KERNEL_FUNCTIONS.values() for fn in fns}
+    busy_us, ranges = 0.0, set()
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy_us += float(e.get("dur", 0.0))
+        if cat == "kernel":
+            for fn in counts:
+                if re.search(rf"\b{fn}\b", e.get("name", "")):
+                    counts[fn] += 1
+        elif cat == "user_annotation":
+            ranges.add(e.get("name"))
+    return {"counts": counts, "busy_ms": busy_us / 1e3,
+            "events": len(events), "ranges": sorted(ranges)}
+
+
+def traced_process(name, argv, env):
+    """One fresh CLI process with STRAWB_TRACE_DIR set to a new directory:
+    (the GTF path, the process's report, its one trace read)."""
+    d = os.path.join(WORK, "trace", name)
+    shutil.rmtree(d, ignore_errors=True)
+    (out,), (rep,), _wall = cli_processes(
+        "traced_" + name, [(argv, {**env, "STRAWB_TRACE_DIR": d})])
+    files = os.listdir(d) if os.path.isdir(d) else []
+    require(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+            f"traced {name}: trace directory holds {files}, not one trace")
+    return out, rep, read_trace(os.path.join(d, files[0]))
+
+
+def trace_phase(n_frags, e2e):
+    """Phase 5: the four device modes of phase 4 traced, each in a fresh
+    process, against their twins' GTF bodies and the wrappers' counts of
+    each __global__ function; a traced -p 2; launches right after a trace
+    starts, in a fresh process and in this one. Fails, with every count,
+    if a trace of a fresh process holds another number of kernel events
+    than was launched."""
+    bam, gtf = realistic_set(n_frags)
+    base = ["-g", gtf, "-r", "--fr", bam]
+    modes = (
+        ("g_r_fast_em", base + ["--fast-em"], {}, "profiled_fast_em"),
+        ("g_r_prep_all", base, {"STRAWB_DEVICE_PREP": "all"},
+         "profiled_prep_all"),
+        ("g_mcf", ["-g", gtf, "--fr", bam], {"STRAWB_DEVICE_MCF": "1"},
+         "profiled_mcf"),
+        ("g_r_shards4_device_em", base + ["--shards", "4"],
+         {"STRAWB_DEVICE_EM": "1"}, "profiled_shards4"))
+    runs, mismatches = {}, []
+    for name, argv, env, prof_key in modes:
+        out, rep, tr = traced_process(name, argv, env)
+        require(body(out) == body(e2e["outs"][name]),
+                f"traced {name}: GTF body differs from the untraced run's")
+        launched = rep["function_launches"]
+        for fn, n in tr["counts"].items():
+            if n != launched.get(fn, 0):
+                mismatches.append(f"{name}: {fn} {n} kernel events in the "
+                                  f"trace, {launched.get(fn, 0)} launched")
+        require(any(launched.values()), f"traced {name}: no kernel launched")
+        em_events = sum(tr["counts"][fn]
+                        for fn in KERNEL_FUNCTIONS["em_bucket"])
+        prof = (e2e["parallel"] if prof_key == "profiled_shards4"
+                else e2e)[prof_key]
+        wall_ms = rep["wall_s"] * 1e3
+        runs[name] = r = {
+            "wall_s": rep["wall_s"], "trace_s": rep["trace_s"],
+            "launches": rep["launches"],
+            "function_launches": launched, "trace_counts": tr["counts"],
+            "trace_events": tr["events"], "ranges": tr["ranges"],
+            "device_busy_ms": tr["busy_ms"],
+            "idle_share": 1 - tr["busy_ms"] / wall_ms,
+            "em_events": em_events,
+            "profiled": {k: prof.get(k) for k in (
+                "wall_s", "device_busy_ms", "idle_share")}}
+        log(f"  traced {name}: GTF body byte-identical to the untraced "
+            f"run's; kernel events {tr['counts']} against launches "
+            f"{launched}; EM events {em_events}, EM launches "
+            f"{rep['launches']['em_bucket']}; {tr['events']} events; wall "
+            f"{rep['wall_s']:.3f} s (starting the trace "
+            f"{rep['trace_s']['start']:.3f} s, stopping it "
+            f"{rep['trace_s']['stop']:.3f} s, of which the export "
+            f"{rep['trace_s']['export']:.3f} s), device busy "
+            f"{tr['busy_ms']:.3f} ms, "
+            f"idle share {r['idle_share']:.4f} (profiled rerun: wall "
+            f"{prof['wall_s']:.3f} s, busy "
+            f"{measured(prof.get('device_busy_ms'), '.3f')}, idle share "
+            f"{prof.get('idle_share')})")
+        if rep["launches"]["em_bucket"] != em_events:
+            mismatches.append(f"{name}: {em_events} EM kernel events, "
+                              f"{rep['launches']['em_bucket']} EM launches")
+
+    out, rep, tr = traced_process("g_r_p2", base + ["-p", "2"], {})
+    require(body(out) == body(e2e["outs"]["g_r_host"]),
+            "traced -p 2: GTF body differs from the default's")
+    require(rep["cuda_at_fork"] == [False, False]
+            and not rep["cuda_initialized"] and not any(
+                rep["launches"].values()),
+            f"traced -p 2: CUDA at the forks {rep['cuda_at_fork']}, at the "
+            f"end {rep['cuda_initialized']}, launches {rep['launches']}")
+    require(tr["busy_ms"] == 0 and "multiprocess_pipeline" in tr["ranges"],
+            f"traced -p 2: device busy {tr['busy_ms']} ms, ranges "
+            f"{tr['ranges']}; a trace of the host alone was expected")
+    runs["g_r_p2"] = {"wall_s": rep["wall_s"], "trace_events": tr["events"],
+                      "ranges": tr["ranges"]}
+    log(f"  traced -p 2: GTF body byte-identical to the default's, no CUDA "
+        f"context at the forks, {tr['events']} host events, ranges "
+        f"{tr['ranges']}")
+
+    # a trace a process, as the CLI makes it, must hold these too; this
+    # old process's traces are recorded, not held to it
+    after_start = after_start_traces()
+    for name, c in after_start["fresh_process"].items():
+        if name != "process_age_s" and \
+                c["port_trace"]["events"] != c["launched"]:
+            mismatches.append(f"{name} right after a trace starts in a fresh "
+                              f"process: {c['port_trace']['events']} events "
+                              f"in the trace, {c['launched']} launched")
+    require(not mismatches, "the trace does not hold what was launched: "
+            + "; ".join(mismatches))
+    log("  every trace of a fresh process holds, for every __global__ "
+        "function, as many kernel events as the wrappers launched")
+    return {"runs": runs, "after_start": after_start}
+
+
+def process_age_s():
+    """Seconds since this process started (from /proc)."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+def traces_right_after_start():
+    """Launches made just after a trace starts, where torch.profiler drops
+    kernel records once the process is old (utils/profiling.py): phase
+    3c's four seeded 256-node problems in one launch, and 100 launches of
+    the reduction, each traced as STRAWB_TRACE_DIR traces a run
+    (utils/profiling.Profiler: CPU and CUDA activity, a Chrome trace) and
+    under torch.profiler with CUDA activity alone (as device_ms and
+    profiled_run read the card). Returns, with this process's age, the
+    launches and, per trace, the kernel events it holds and its device
+    busy time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_ragged_cuda,
+                                                        pack_problems)
+    from strawberry_tpu_torch.parallel.cuda_reduce import shard_colsum_cuda
+    from strawberry_tpu_torch.utils import profiling
+    dev = torch.device("cuda")
+    problems = [p for p in flow_problems(2000, MCF_SIZES, per_size=4)
+                if p[0].shape[0] == 256]
+    x = pack_problems(problems, pin=True).to(dev)
+    rows = torch.from_numpy(np.random.default_rng(3000).integers(
+        0, 2**40, size=(1, 600)).astype(np.float64)).to(dev)
+    cases = {"mcf_256": ("mcf_block_kernel", lambda: mcf_ragged_cuda(x)),
+             "reduction_x100": ("shard_colsum_kernel", lambda: [
+                 shard_colsum_cuda(rows) for _ in range(100)])}
+    counters = launch_counters()
+    d = os.path.join(WORK, "trace", f"after_start_{os.getpid()}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.environ["STRAWB_TRACE_DIR"] = d
+    try:
+        tracer = profiling.Profiler(enabled=False)
+    finally:
+        del os.environ["STRAWB_TRACE_DIR"]
+    out = {"process_age_s": process_age_s()}
+    for name, (fn_name, fn) in cases.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        before = function_counts(counters)[fn_name]
+        tracer.start_trace()
+        fn()
+        try:
+            path = tracer.stop_trace()
+        except profiling.TraceIncomplete as e:
+            path = e.path
+        launched = function_counts(counters)[fn_name] - before
+        port = read_trace(path)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(d, "cuda_only.json")
+        prof.export_chrome_trace(path)
+        cuda_only = read_trace(path)
+        out[name] = {"launched": launched,
+                     "port_trace": {"events": port["counts"][fn_name],
+                                    "busy_ms": port["busy_ms"]},
+                     "cuda_only": {"events": cuda_only["counts"][fn_name],
+                                   "busy_ms": cuda_only["busy_ms"]}}
+    return out
+
+
+# Runs traces_right_after_start() in a fresh process (a trace a process, as
+# the CLI traces a run) with jax and the JAX package blocked from import,
+# and prints its result as JSON.
+_AFTER_START_RUNNER = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+sys.modules["jax"] = None
+sys.modules["strawberry_tpu"] = None
+import chip_smoke
+print(json.dumps(chip_smoke.traces_right_after_start()))
+"""
+
+
+def after_start_traces():
+    """traces_right_after_start in a fresh process and in this one (old by
+    now): {"fresh_process": ..., "this_process": ...}."""
+    proc = subprocess.run([sys.executable, "-c", _AFTER_START_RUNNER],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=PROCESS_TIMEOUT_S)
+    require(proc.returncode == 0, "traces right after start in a fresh "
+            f"process: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
+    out = {"fresh_process": json.loads(proc.stdout.strip().splitlines()[-1]),
+           "this_process": traces_right_after_start()}
+    for where, r in out.items():
+        log(f"  launches right after a trace starts, {where} (age "
+            f"{r['process_age_s']:.1f} s): " + "; ".join(
+                f"{name} {c['launched']} launched, {c['port_trace']['events']}"
+                f" in the port's trace ({c['port_trace']['busy_ms']:.4f} ms "
+                f"busy), {c['cuda_only']['events']} under CUDA activity alone "
+                f"({c['cuda_only']['busy_ms']:.4f} ms)"
+                for name, c in r.items() if name != "process_age_s"))
+    return out
 
 
 def main():
@@ -1753,6 +2043,7 @@ def main():
     prep = summed({f"synthetic_{seed}": compare_prep(
         dev, *synthetic_prep_chunk(seed), f"synthetic chunk {seed}")
         for seed in (7, 8)})
+    prep["device_ms"] = sum(r["device_ms"] for r in prep["parts"].values())
 
     log("phase 3c: MCF kernel vs plain version and solve_dense")
     mcf = check_mcf(dev)
@@ -1766,7 +2057,12 @@ def main():
     log(f"phase 4: end to end, {args.n_frags} fragments")
     e2e = end_to_end(args.n_frags, dev)
     log("  " + json.dumps({k: v for k, v in e2e.items()
-                           if not k.startswith("main_path")}))
+                           if not k.startswith("main_path")
+                           and k != "outs"}))
+
+    log("phase 5: the STRAWB_TRACE_DIR trace against the launch counts")
+    traced = trace_phase(args.n_frags, e2e)
+    log("  trace: " + json.dumps(traced))
 
     src = "strawberry_tpu_torch/csrc/em_bucket.cu"
     replaces = {"f32": "strawberry_tpu/quant/pallas_em.py:34",

@@ -295,8 +295,10 @@ def mcf_ragged_cuda(x: Packed, max_aug: int = MAX_AUG) -> Flows:
     """Launch csrc/mcf_bucket.cu on PyTorch's current stream of the
     problems' device, one launch per size class present; returns the Flows
     without synchronizing. Counts its kernel launches in
-    `mcf_ragged_cuda.launches`, and those of each class in
-    `mcf_ragged_cuda.class_launches`."""
+    `mcf_ragged_cuda.launches`, those of each class in
+    `mcf_ragged_cuda.class_launches`, and those of each `__global__`
+    function in `mcf_ragged_cuda.function_launches` (both block classes
+    launch mcf_block_kernel)."""
     dev = x.cost.device
     if dev.type != "cuda":
         raise ValueError(f"mcf_ragged_cuda needs CUDA tensors, got {dev}")
@@ -316,12 +318,17 @@ def mcf_ragged_cuda(x: Packed, max_aug: int = MAX_AUG) -> Flows:
     for (name, _top), n in zip(CLASSES, (n_warp, n_block, n_glob)):
         mcf_ragged_cuda.launches += n > 0
         mcf_ragged_cuda.class_launches[name] += n > 0
+        mcf_ragged_cuda.function_launches[_FUNCTION[name]] += n > 0
     return out
 
 
 mcf_ragged_cuda.launches = 0
 mcf_ragged_cuda.class_launches = dict.fromkeys(
     (name for name, _top in CLASSES), 0)
+# the __global__ function each size class launches
+_FUNCTION = {"warp": "mcf_warp_kernel", "block": "mcf_block_kernel",
+             "block_global": "mcf_block_kernel"}
+mcf_ragged_cuda.function_launches = dict.fromkeys(_FUNCTION.values(), 0)
 
 
 def mcf_ragged(x: Packed, max_aug: int = MAX_AUG) -> Flows:

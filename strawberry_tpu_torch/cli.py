@@ -14,6 +14,10 @@ STRAWB_DIST_NPROCS and STRAWB_DIST_PROCID starts one process per shard,
 joined by torch.distributed over gloo (several may share one GPU). In the
 last two the cross-shard statistics are summed on the GPU by the
 reduction kernel (parallel/cuda_reduce.py).
+
+STRAWB_TRACE_DIR=<dir> writes a torch.profiler trace of the run into
+<dir> (utils/profiling.py), one file a process: in every launch here,
+where the JAX CLI traces only the run_driver ones.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import sys
 
 from .config import Config
 from .pipeline import run_driver
+from .utils.profiling import GLOBAL as PROF
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -166,13 +171,16 @@ def main(argv=None) -> int:
                 # each process runs exactly its genome shard; process 0
                 # gets the gathered, globally-normalized GTF
                 from .parallel.distributed import run_distributed
+                PROF.start_trace()
                 run_distributed(args.bam, cfg, out, log, fragfh)
+                PROF.stop_trace()
             elif args.shards > 0:
                 from .io.bamreader import load_bam
                 from .parallel.distributed import run_sharded
                 from .parallel.mesh import make_mesh
                 if cfg.verbose:
                     os.environ["STRAWB_VERBOSE"] = "1"  # decode diag capture
+                PROF.start_trace()
                 try:
                     from .io.native import load_bam_native
                     table = load_bam_native(args.bam, cfg)
@@ -185,6 +193,7 @@ def main(argv=None) -> int:
                     _emit_read_diags(getattr(table, "diag_events", None))
                 run_sharded(table, cfg, args.bam, out, log,
                             n_shards=args.shards, mesh=make_mesh(mdl=1))
+                PROF.stop_trace()
             else:
                 run_driver(args.bam, cfg, out, log, fragfh, cmdline)
         except IOError as e:

@@ -60,8 +60,10 @@ _launch = Entry("shard_reduce", "strawb_shard_colsum",
 def shard_colsum_cuda(rows):
     """Launch csrc/shard_reduce.cu on PyTorch's current stream of the rows'
     device; returns (H,) float64 without synchronizing. Counts its launches
-    in `shard_colsum_cuda.launches`. Refuses an input that is not a
-    contiguous float64 (N, H) tensor on a GPU rather than converting it.
+    in `shard_colsum_cuda.launches` (and, as the other wrappers do, by
+    `__global__` function in `shard_colsum_cuda.function_launches`).
+    Refuses an input that is not a contiguous float64 (N, H) tensor on a
+    GPU rather than converting it.
     The entry is bound once and the C side switches device only when the
     rows' device is not the current one, so no device guard is entered,
     and the stream is the raw handle (`utils.kernels.stream_handle`)."""
@@ -76,10 +78,12 @@ def shard_colsum_cuda(rows):
     _launch(rows.data_ptr(), N, H, out.data_ptr(), dev.index,
             stream_handle(dev.index))
     shard_colsum_cuda.launches += 1
+    shard_colsum_cuda.function_launches["shard_colsum_kernel"] += 1
     return out
 
 
 shard_colsum_cuda.launches = 0
+shard_colsum_cuda.function_launches = {"shard_colsum_kernel": 0}
 
 
 def shard_colsum(rows):

@@ -18,7 +18,11 @@ models and runs the LCM EM. What differs from the original:
 - `run_driver` reaches its `-p` branch (parallel/multiproc.py, forked
   shard workers that keep their work on the host) before anything touches
   the GPU: a CUDA context does not survive a fork. The STRAWB_TRACE_DIR
-  device trace is not ported yet and is refused.
+  trace is torch.profiler's (utils/profiling.py), started and stopped
+  where the JAX package's run_driver starts and stops jax.profiler's,
+  and also stopped on the --no-quant and "Not enough reads" returns, so
+  those runs write theirs too. Under -p it records the parent's host
+  side only and leaves CUDA untouched.
 
 Both methods are kept close to the originals so the two can be diffed.
 """
@@ -1468,10 +1472,6 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
     """driver() (Strawberry.cpp:237-371), with the device work on the GPU.
     Returns the Sample, except on the forked -p path (the work lives in
     the shard workers; the parent has no table) where it returns None."""
-    if os.environ.get("STRAWB_TRACE_DIR"):
-        raise NotImplementedError(
-            "STRAWB_TRACE_DIR: the profiler trace is not ported to "
-            "strawberry_tpu_torch yet (ROADMAP.md queue 1 item 8)")
     from .utils.malloctune import tune, cap_blas_threads, tune_gc
     tune()
     cap_blas_threads()
@@ -1485,7 +1485,9 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         os.environ["STRAWB_VERBOSE"] = "1"
     else:
         os.environ.pop("STRAWB_VERBOSE", None)
-    if cfg.num_threads > 1 and not cfg.no_quant:
+    multiproc = cfg.num_threads > 1 and not cfg.no_quant
+    PROF.start_trace(cuda=not multiproc)  # -p: no CUDA before the forks
+    if multiproc:
         # -p N: forked shard workers, each inflating only its own BGZF
         # block span (no parent-side decode). Falls back to the COW-table
         # variant below when the native span decoder is unavailable.
@@ -1497,6 +1499,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
                 nrows = run_multiprocess_ranged(
                     bam_path, cfg, out, n_procs=cfg.num_threads,
                     fragfile=fragfile)
+            PROF.stop_trace()
             if cfg.verbose:
                 sys.stderr.write(PROF.report(total_reads=nrows) + "\n")
             return None
@@ -1544,7 +1547,6 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         gtf_thread = threading.Thread(target=_read_gtf, daemon=True)
         gtf_thread.start()
     table = None
-    multiproc = cfg.num_threads > 1 and not cfg.no_quant
     if not multiproc and cfg.stream_decode and cfg.native_cluster:
         # streaming decode: the BAM inflate+parse runs on a background
         # pipeline and pass-1 clustering consumes chromosome blocks as they
@@ -1603,6 +1605,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         with PROF.phase("multiprocess_pipeline", items=len(table)):
             run_multiprocess(table, cfg, bam_path, out, log,
                              n_procs=cfg.num_threads)
+        PROF.stop_trace()
         if cfg.verbose:
             sys.stderr.write(PROF.report(total_reads=len(table)) + "\n")
         return sample
@@ -1647,6 +1650,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
                 if iso.ref_id >= 0 else "?"
             print2gtf(out, iso, ref_name, "", "", "", iso.parent_id,
                       iso.trans_id, iso.ref_gene_id, iso.ref_gene_name)
+        PROF.stop_trace()
         return sample
 
     if cfg.verbose:
@@ -1660,6 +1664,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
     except NotEnoughReads:
         # reference: "Not enough reads" + exit(0) (read.cpp:241-245)
         sys.stderr.write("Not enough reads\nExit program...\n")
+        PROF.stop_trace()
         return sample
     if fragfile is not None:
         from .quant.fragcontext import FRAG_HEADER
@@ -1680,6 +1685,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         # single-process direct output: the per-isoform objects are only
         # an intermediate for the GTF bytes — let pass 2 skip them
         sample.proc_sample(out, log, fragfile, want_isoforms=False)
+    PROF.stop_trace()
     if cfg.verbose:
         sys.stderr.write(PROF.report(total_reads=len(table)) + "\n")
     return sample

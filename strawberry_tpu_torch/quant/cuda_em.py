@@ -8,7 +8,8 @@ float and double, serves both; it also returns `failed`.
 
 - `em_bucket_cuda`: the kernel's wrapper (CUDA tensors only).
 - `em_bucket_plan`: the launch the kernel picks for a bucket shape (which
-  kernel, CTAs a locus, shared memory), for the chip smoke's report.
+  kernel, CTAs a locus, shared memory), for the chip smoke's report;
+  `kernel_function` names its `__global__` function without the GPU.
 - `em_bucket_reference`: the plain PyTorch version, a masked loop like
   `_em_bucket`; the CPU tests run it, and the chip smoke holds the kernel
   against it. It can also count each locus' iterations.
@@ -106,10 +107,21 @@ def _check(F, u, theta0, valid, active):
             raise ValueError(f"{name} must be contiguous")
 
 
+def kernel_function(R, cols):
+    """The `__global__` function csrc/em_bucket.cu launches for buckets of R
+    rows and `cols` columns (its use_warp_kernel / use_rows_kernel rule)."""
+    if R <= 128 and cols <= 8:
+        return "em_warp_kernel"
+    if R <= 512 and cols <= 32:
+        return "em_rows_kernel"
+    return "em_strip_kernel"
+
+
 def em_bucket_cuda(F_raw, u, theta0, valid, active):
     """Launch csrc/em_bucket.cu on PyTorch's current stream; returns
     (theta (B,C), failed (B,)) without synchronizing. Counts its launches
-    in `em_bucket_cuda.launches`."""
+    in `em_bucket_cuda.launches`, and those of each `__global__` function
+    in `em_bucket_cuda.function_launches`."""
     if not F_raw.is_cuda:
         raise ValueError(f"em_bucket_cuda needs CUDA tensors, got "
                          f"{F_raw.device}")
@@ -126,10 +138,13 @@ def em_bucket_cuda(F_raw, u, theta0, valid, active):
                failed.data_ptr(), B, R, C_, MAX_ITER,
                torch.cuda.current_stream().cuda_stream)
     em_bucket_cuda.launches += 1
+    em_bucket_cuda.function_launches[kernel_function(R, C_)] += 1
     return theta, failed
 
 
 em_bucket_cuda.launches = 0
+em_bucket_cuda.function_launches = dict.fromkeys(
+    ("em_warp_kernel", "em_rows_kernel", "em_strip_kernel"), 0)
 _ARGS = [C.c_void_p] * 7 + [C.c_int] * 4 + [C.c_void_p]
 _launch = {torch.float64: Entry("em_bucket", "strawb_em_bucket_f64", _ARGS),
            torch.float32: Entry("em_bucket", "strawb_em_bucket_f32", _ARGS)}

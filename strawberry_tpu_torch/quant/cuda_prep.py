@@ -178,7 +178,10 @@ def _check(x: PrepInputs, P: int):
 def quant_prep_cuda(x: PrepInputs, P: int):
     """Launch csrc/quant_prep.cu (the compat and rows kernels) on
     PyTorch's current stream; returns (compat, rows) without
-    synchronizing. Counts its launches in `quant_prep_cuda.launches`."""
+    synchronizing. Counts its launches in `quant_prep_cuda.launches`, and
+    those of each `__global__` function in
+    `quant_prep_cuda.function_launches`: compat_kernel where P > 0,
+    rows_kernel where H > 0."""
     if not x.goff.is_cuda:
         raise ValueError(f"quant_prep_cuda needs CUDA tensors, got "
                          f"{x.goff.device}")
@@ -194,10 +197,14 @@ def quant_prep_cuda(x: PrepInputs, P: int):
                 x.ni.shape[0], x.iso_idx.shape[0], compat.data_ptr(),
                 rows.data_ptr(), torch.cuda.current_stream().cuda_stream)
     quant_prep_cuda.launches += 1
+    quant_prep_cuda.function_launches["compat_kernel"] += P > 0
+    quant_prep_cuda.function_launches["rows_kernel"] += H > 0
     return compat, rows
 
 
 quant_prep_cuda.launches = 0
+quant_prep_cuda.function_launches = dict.fromkeys(
+    ("compat_kernel", "rows_kernel"), 0)
 _launch = Entry("quant_prep", "strawb_quant_prep",
                 [C.c_void_p] * 17 + [C.c_int] * 5 + [C.c_void_p] * 3)
 

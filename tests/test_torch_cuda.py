@@ -13,7 +13,9 @@ runs on its own:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -36,7 +38,8 @@ from strawberry_tpu_torch.parallel.mesh import make_mesh, sharded_em_bucket
 from strawberry_tpu_torch.quant.cuda_em import (MAX_ITER, bucket_to_torch,
                                                 em_bucket_cuda,
                                                 em_bucket_plan,
-                                                em_bucket_reference)
+                                                em_bucket_reference,
+                                                kernel_function)
 from strawberry_tpu_torch.quant.cuda_prep import (quant_prep_cuda,
                                                   quant_prep_reference)
 from strawberry_tpu_torch.quant.device import _TIERS
@@ -136,6 +139,7 @@ def test_kernel_specialization_per_tier(tier, kernel, cuda_device):
     """Each tier's launch plan, and the edge cases (iteration cap, a zero
     column with nonzero theta0, a non-prefix valid mask) through it."""
     R, C, B = _TIERS[tier]
+    assert kernel_function(R, C) == f"em_{kernel}_kernel"
     for dt in (torch.float32, torch.float64):
         plan = em_bucket_plan(B, R, C, dt)
         assert plan["kernel"] == kernel
@@ -151,10 +155,17 @@ def test_kernel_specialization_per_tier(tier, kernel, cuda_device):
                                    (4, 513, 32), (4, 700, 50),
                                    (3, 3000, 130)])
 def test_kernel_odd_shapes(shape, cuda_device):
-    """Shapes on either side of each specialization's limits."""
+    """Shapes on either side of each specialization's limits, each counted
+    under the __global__ function the kernel's plan names."""
+    B, R, C = shape
+    fn = kernel_function(R, C)
+    assert fn == f"em_{em_bucket_plan(B, R, C, torch.float32)['kernel']}"\
+        "_kernel"
+    before = em_bucket_cuda.function_launches[fn]
     assert_kernel_matches_plain(
         random_bucket(np.random.default_rng(sum(shape)), *shape),
         cuda_device)
+    assert em_bucket_cuda.function_launches[fn] > before
 
 
 @pytest.mark.cuda
@@ -438,3 +449,66 @@ def test_sharded_em_bucket_equals_whole_bucket(tier, n_devices, mdl,
                                                torch.float64))
     torch.testing.assert_close(theta_np, ref[0], rtol=1e-9, atol=1e-9)
     assert torch.equal(failed_np, ref[1])
+
+
+# Traces one call of every wrapper, launches that take every __global__
+# function, in a fresh process (a trace a process, as the CLI traces a run:
+# in an old process torch.profiler drops kernels launched right after a
+# trace starts, see utils/profiling.py) and prints as JSON the launches the
+# wrappers counted and the kernel events the trace holds.
+_TRACE_RUNNER = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+from chip_smoke import (flow_problems, function_counts, infeasible_problem,
+                        launch_counters, prep_inputs, random_bucket,
+                        read_trace, synthetic_prep_chunk)
+from strawberry_tpu_torch.assembly.cuda_mcf import (mcf_ragged_cuda,
+                                                    pack_problems)
+from strawberry_tpu_torch.parallel.cuda_reduce import shard_colsum_cuda
+from strawberry_tpu_torch.quant.cuda_em import bucket_to_torch, em_bucket_cuda
+from strawberry_tpu_torch.quant.cuda_prep import quant_prep_cuda
+from strawberry_tpu_torch.quant.device import _TIERS
+from strawberry_tpu_torch.utils.profiling import Profiler
+dev = torch.device("cuda")
+buckets = [bucket_to_torch(*random_bucket(np.random.default_rng(t), B, R, C),
+                           dev, torch.float32)
+           for t, (R, C, B) in enumerate(_TIERS)]
+x = prep_inputs(*synthetic_prep_chunk(7)[:2], dev)
+P = synthetic_prep_chunk(7)[2]
+problems = flow_problems(40, (3, 8, 32, 33, 64, 128, 200, 256), per_size=2)
+flows = pack_problems(problems + [infeasible_problem()], pin=True).to(dev)
+rows = torch.rand((4, 600), dtype=torch.float64, device=dev)
+torch.cuda.synchronize()
+counters = launch_counters()
+before = function_counts(counters)
+tracer = Profiler(enabled=False)
+tracer.start_trace()
+for b in buckets:
+    em_bucket_cuda(*b)
+quant_prep_cuda(x, P)
+mcf_ragged_cuda(flows)
+shard_colsum_cuda(rows)
+path = tracer.stop_trace()
+print(json.dumps({"launched": {fn: n - before[fn] for fn, n in
+                               function_counts(counters).items()},
+                  "events": read_trace(path)["counts"]}))
+"""
+
+
+@pytest.mark.cuda
+def test_trace_holds_every_kernel_launch(cuda_device, tmp_path):
+    """The STRAWB_TRACE_DIR trace (utils/profiling.Profiler) over calls of
+    every wrapper that launch every __global__ function holds, for each,
+    as many kernel events as the wrappers counted."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRACE_RUNNER], cwd=root,
+        env=dict(os.environ, STRAWB_TRACE_DIR=str(tmp_path),
+                 STRAWB_PLATFORM="cuda"),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert all(res["launched"].values()), res["launched"]
+    assert res["events"] == res["launched"]

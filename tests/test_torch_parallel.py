@@ -399,6 +399,37 @@ def test_multiprocess_cli_matches_single_process(tmp_path, multihost_set,
     _assert_ranged_ingest(tmp_path, nprocs)
 
 
+def test_traced_multiprocess_and_sharded_cli(tmp_path, multihost_set):
+    """STRAWB_TRACE_DIR in the two launches that do not go through
+    run_driver: each rank of a two-process launch writes its own Chrome
+    trace, named by its rank, and --shards one; both give the untraced
+    single process's GTF body."""
+    bam, gtf = multihost_set
+    args = ["-g", gtf, "-r"]
+    single = str(tmp_path / "single.gtf")
+    port_cli([[*args, "-o", single, "-T", str(tmp_path / "single.log"),
+               bam]])
+    want = body(single)
+    assert want.count("\ttranscript\t") > 0
+    dist_dir, shards_dir = tmp_path / "trace_dist", tmp_path / "trace_shards"
+    got = port_distributed(tmp_path, [args] * 2, bam,
+                           STRAWB_TRACE_DIR=str(dist_dir))
+    assert body(got) == want
+    names = sorted(os.listdir(dist_dir))
+    host = socket.gethostname()
+    assert sorted(n[len(host) + 1:].split(".")[1] for n in names) == [
+        "rank0", "rank1"], names
+    sharded = str(tmp_path / "sharded.gtf")
+    port_cli([[*args, "--shards", "2", "-o", sharded, "-T",
+               str(tmp_path / "sharded.log"), bam]],
+             STRAWB_TRACE_DIR=str(shards_dir))
+    assert body(sharded) == want
+    [name] = os.listdir(shards_dir)
+    for d, n in [(dist_dir, names[0]), (shards_dir, name)]:
+        with open(d / n) as f:
+            assert json.load(f)["traceEvents"]
+
+
 def test_multiprocess_cli_ab_initio(tmp_path):
     bam, _gtf, _ = make_dataset(str(tmp_path / "d"), seed=62, n_frags=3000,
                                 n_chroms=2, chrom_len=400_000)

@@ -3,12 +3,14 @@ package's on small simulated sets, in subprocesses: byte-identical GTF
 bodies and -T logs in the default modes, --fast-em (the plain f32 EM on
 the CPU) within a TPM tolerance, and runs with jax and the JAX package
 blocked from import, among them one through the device prep and flow
-routes. The two packages are independent copies: the port's subprocesses
+routes, and the STRAWB_TRACE_DIR trace of the port (a torch.profiler
+Chrome trace). The two packages are independent copies: the port's subprocesses
 block both jax and strawberry_tpu throughout (this process imports them),
 and report every shared library they mapped, so a test can show that the
 port loads only the host library built from its own native/ sources."""
 import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -29,7 +31,8 @@ DATASETS = {"paired": (dict(seed=9, paired=True), "--fr"),
 MODES = {"g": ["-g", "{gtf}"], "g_r": ["-g", "{gtf}", "-r"], "abinitio": []}
 
 # Runs every argv of the list through <package>.cli.main in one process and
-# prints the exit codes, each run's flow-solve and prep counts, whether jax
+# prints the exit codes, each run's flow-solve and prep counts (none for a
+# -p run, whose work is in its workers), whether jax
 # or the JAX package was imported, and the shared libraries the process
 # mapped, as JSON. BLOCK_JAX=1 makes `import jax` and `import
 # strawberry_tpu` fail.
@@ -51,7 +54,8 @@ print(json.dumps({"rcs": rcs, "jax": sys.modules.get("jax") is not None,
                       m.split(".")[0] == "strawberry_tpu"
                       and sys.modules[m] is not None for m in sys.modules),
                   "libs": libs,
-                  "stats": [[s.flow_stats, getattr(s, "prep_stats", {})]
+                  "stats": [[getattr(s, "flow_stats", {}),
+                             getattr(s, "prep_stats", {})]
                             for s in samples]}))
 """
 
@@ -189,43 +193,151 @@ def test_port_device_routes_run_with_jax_blocked(tmp_path):
         outs["strawberry_tpu"])
 
 
-# Each case runs cli.main and must raise NotImplementedError naming the
-# port; prints the messages as JSON.
-_REFUSALS = """
-import json, os, sys
-sys.modules["jax"] = None
-sys.modules["strawberry_tpu"] = None
-from strawberry_tpu_torch.cli import main
-msgs = []
-for argv, env in json.loads(sys.argv[1]):
-    os.environ.update(env)
-    try:
-        main(argv)
-    except NotImplementedError as e:
-        msgs.append(str(e))
-    else:
-        msgs.append(None)
-    for k in env:
-        del os.environ[k]
-print(json.dumps(msgs))
-"""
+@pytest.fixture(scope="module")
+def traced(tmp_path_factory):
+    """`-g -r` and `-g -r -p 2` through the port's CLI with jax blocked on
+    the CPU (STRAWB_PLATFORM=cpu): both untraced in one process, then each
+    traced (STRAWB_TRACE_DIR) in a process of its own. Returns {run: (GTF
+    path, trace directory, the runner's report)}."""
+    root = tmp_path_factory.mktemp("torch_trace")
+    bam, gtf, _ = make_dataset(str(root / "d"), seed=6, n_frags=800)
+
+    def argv(name, extra):
+        return ["-g", gtf, "-r", *extra, "-o", str(root / f"{name}.gtf"),
+                "-T", str(root / f"{name}.log"), bam]
+
+    runs = {"plain": [], "plain_p2": ["-p", "2"]}
+    res = run_cli("strawberry_tpu_torch",
+                  [argv(name, extra) for name, extra in runs.items()],
+                  block_jax=True)
+    out = {name: (str(root / f"{name}.gtf"), None, res) for name in runs}
+    for name, extra in (("traced", []), ("traced_p2", ["-p", "2"])):
+        d = root / f"trace_{name}"
+        res = run_cli("strawberry_tpu_torch", [argv(name, extra)],
+                      block_jax=True, STRAWB_TRACE_DIR=str(d))
+        out[name] = (str(root / f"{name}.gtf"), d, res)
+    return out
 
 
-def test_port_refuses_unported_paths(tmp_path):
-    bam, _gtf, _ = make_dataset(str(tmp_path / "d"), seed=6, n_frags=800)
-    cases = [([], {"STRAWB_TRACE_DIR": str(tmp_path)})]
-    runs = [(a + ["-o", str(tmp_path / f"o{i}.gtf"), "-T",
-                  str(tmp_path / f"o{i}.log"), bam], e)
-            for i, (a, e) in enumerate(cases)]
-    proc = subprocess.run(
-        [sys.executable, "-c", _REFUSALS, json.dumps(runs)], cwd=ROOT,
-        env=dict(os.environ, STRAWB_PLATFORM="cpu"), capture_output=True,
-        text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    msgs = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert len(msgs) == len(cases)
-    for m in msgs:
-        assert m is not None and "not ported to strawberry_tpu_torch" in m
+def trace_of(d):
+    """The one Chrome trace in directory d, loaded."""
+    files = sorted(os.listdir(d))
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json"), files
+    with open(os.path.join(d, files[0])) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("run", ["traced", "traced_p2"])
+def test_port_trace_writes_one_chrome_trace(traced, run):
+    _out, d, _res = traced[run]
+    host = socket.gethostname()
+    [name] = os.listdir(d)
+    assert name.startswith(host + ".")
+    assert name[len(host) + 1:].split(".")[0].isdigit()  # the pid
+    events = trace_of(d)["traceEvents"]
+    assert isinstance(events, list) and events
+
+
+@pytest.mark.parametrize("run,phases", [
+    ("traced", {"pass1_assemble", "pass2_quant"}),
+    ("traced_p2", {"multiprocess_pipeline"})])
+def test_port_trace_holds_phase_ranges(traced, run, phases):
+    """The phases of the report are record_function ranges in the trace;
+    the -p parent's trace holds its host side only."""
+    events = trace_of(traced[run][1])["traceEvents"]
+    ranges = {e["name"] for e in events
+              if e.get("cat") == "user_annotation"}
+    assert phases <= ranges, ranges
+    assert not any(str(e.get("cat", "")).lower() == "kernel"
+                   for e in events)
+
+
+@pytest.mark.parametrize("run,twin", [("traced", "plain"),
+                                      ("traced_p2", "plain_p2")])
+def test_port_traced_run_gives_untraced_body(traced, run, twin):
+    want = body(traced[twin][0])
+    assert want.count("\ttranscript\t") > 0
+    assert body(traced[run][0]) == want
+
+
+def test_port_traced_runs_import_no_jax(traced):
+    for _out, _d, res in traced.values():
+        assert_standalone(res)
+
+
+def test_port_trace_of_the_gpu_without_one_raises(tmp_path, monkeypatch):
+    """STRAWB_PLATFORM=cuda (the default) traces the GPU: without one the
+    trace raises, as a device route does, rather than trace the host
+    alone; STRAWB_PLATFORM=cpu traces the host."""
+    import torch
+    from strawberry_tpu_torch.utils.profiling import Profiler
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a GPU")
+    monkeypatch.setenv("STRAWB_TRACE_DIR", str(tmp_path / "t"))
+    monkeypatch.setenv("STRAWB_PLATFORM", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Profiler().start_trace()
+    monkeypatch.setenv("STRAWB_PLATFORM", "cpu")
+    prof = Profiler()
+    prof.start_trace()
+    with prof.phase("a_phase"):
+        torch.ones(3).sum()
+    path = prof.stop_trace()
+    assert os.path.dirname(path) == str(tmp_path / "t")
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    assert "a_phase" in names
+    assert prof.stop_trace() is None
+
+
+def test_port_trace_that_cannot_be_written_raises(tmp_path, monkeypatch):
+    """A trace directory that cannot be made fails the run at its start."""
+    from strawberry_tpu_torch.utils.profiling import Profiler
+    blocker = tmp_path / "a_file"
+    blocker.write_text("")
+    monkeypatch.setenv("STRAWB_TRACE_DIR", str(blocker / "trace"))
+    monkeypatch.setenv("STRAWB_PLATFORM", "cpu")
+    with pytest.raises(OSError):
+        Profiler().start_trace()
+
+
+def test_port_trace_counts_lost_kernel_records():
+    """Each kernel launch the host recorded (cudaLaunchKernel,
+    cuLaunchKernel and their kin) is matched to its kernel record by
+    correlation id; copies and host ops do not count."""
+    from strawberry_tpu_torch.utils.profiling import lost_kernel_records
+
+    def ev(cat, name, corr=None):
+        return {"cat": cat, "name": name,
+                **({} if corr is None else {"args": {"correlation": corr}})}
+    events = [ev("cuda_runtime", "cudaLaunchKernel", 1),
+              ev("cuda_runtime", "cudaLaunchKernelExC_v11060", 2),
+              ev("cuda_driver", "cuLaunchKernel", 3),
+              ev("cuda_runtime", "cudaMemcpyAsync", 4),
+              ev("kernel", "void k<float>(float*)", 1),
+              ev("kernel", "void k<double>(double*)", 3),
+              ev("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 4),
+              ev("cpu_op", "aten::add"), ev("user_annotation", "pass2_quant")]
+    assert lost_kernel_records(events) == (3, 1)
+    assert lost_kernel_records(events[:1] + events[4:5]) == (1, 0)
+    assert lost_kernel_records(events[6:]) == (0, 0)
+
+
+def test_port_trace_missing_kernel_records_raise(tmp_path, monkeypatch):
+    """A trace of the GPU that lacks a launched kernel's record is written,
+    then stop_trace raises TraceIncomplete naming it."""
+    import torch
+    from strawberry_tpu_torch.utils import profiling
+    monkeypatch.setenv("STRAWB_TRACE_DIR", str(tmp_path))
+    monkeypatch.setenv("STRAWB_PLATFORM", "cpu")
+    prof = profiling.Profiler()
+    prof.start_trace()
+    prof._trace_cuda = True  # checked as a trace of the GPU is
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(profiling, "lost_kernel_records", lambda ev: (5, 2))
+    with pytest.raises(profiling.TraceIncomplete, match="3 of the 5") as e:
+        prof.stop_trace()
+    assert os.path.isfile(e.value.path) and e.value.lost == 2
 
 
 def test_port_sim_writes_jax_package_bytes(tmp_path):
