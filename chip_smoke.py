@@ -9,7 +9,9 @@ Phases:
   2. build the host C++ library (from strawberry_tpu_torch/native/, with
      g++) and the four kernels (csrc/em_bucket.cu, csrc/quant_prep.cu,
      csrc/mcf_bucket.cu, csrc/shard_reduce.cu) from this checkout, the
-     kernels in parallel, timed.
+     kernels in parallel, timed; beside them an empty kernel (the floor
+     of a launch) and `nvcc -Xptxas -v` on the prep kernel's sources
+     (registers, spills, shared memory).
   3. the EM kernel against its plain PyTorch version at the four tier
      shapes, on seeded random buckets that include a zero-denominator
      locus, inactive loci and an all-zero column. f64: rtol/atol 1e-9
@@ -23,12 +25,15 @@ Phases:
      the bytes over the HBM rate, counted for this bucket's data) and the
      share of it the kernel reaches, the launch plan; at tier 3 also the
      time with 8 CTAs a locus against the 16 the kernel picks.
-  3b. the quant-prep kernels against their plain version, array-equal, on
-     a seeded synthetic chunk that hits every edge case (padded features,
-     a candidate exon past the last one, an intron after the last exon, a
-     hit with no features, 64-exon isoforms, 16-feature hits, 128
-     segments). CUDA-event times, and the time on the card with the calls
-     queued back to back.
+  3b. the quant-prep kernel (one launch a chunk over locus tiles) against
+     its plain version, array-equal, on seeded synthetic chunks that hit
+     every edge case of `kern` (padded features, a candidate exon past the
+     last one, an intron after the last exon, a hit with no features,
+     64-exon isoforms, 16-feature hits, 128 segments) and on chunks at the
+     edges of the tile design (a locus of 32,000 pairs, a locus of 200
+     isoforms of 64 exons, loci with no hits, hits with no pairs).
+     CUDA-event times, the time on the card with the calls queued back to
+     back, and an empty launch of the same grid queued the same way.
   3c. the ragged min-cost-flow kernel against its plain version and
      mincostflow.solve_dense, array-equal, on seeded random CMPC problems
      of 3, 8, 13, 32, 33, 64, 128 and 256 nodes with an infeasible problem,
@@ -66,7 +71,8 @@ Phases:
      (device busy time, each kernel's share, phase report). Each kernel
      is then held against its plain version again, with the same numbers
      as in phase 3, on inputs the main path made: the first full bucket of
-     each EM tier, the first full prep chunk, every MCF problem of the run
+     each EM tier, the first full prep chunk (and every prep chunk of the
+     STRAWB_DEVICE_PREP=all run, array-equal), every MCF problem of the run
      (in one call) and the largest call alone. The profiled MCF run
      reports its copies each way and `flow_dp`. Then the parallel layer, each against
      the default
@@ -86,8 +92,9 @@ Phases:
      spent starting and stopping the trace reported). Each must give
      the GTF body of its phase-4 twin and write one Chrome trace that holds,
      for every __global__ function of the four kernel sources, as many
-     kernel events as the wrappers counted; the device busy time and idle
-     share read from each trace are printed beside the profiled reruns'.
+     kernel events as the wrappers counted, with each function's total and
+     mean kernel time; the device busy time and idle share read from each
+     trace are printed beside the profiled reruns'.
      Then a traced `-p 2` (the default's body, one trace of the host alone,
      no CUDA context at the forks), and launches made right after a trace
      starts (phase 3c's 256-node MCF launch, 100 reduction launches) under
@@ -281,6 +288,99 @@ def queued_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# An empty kernel: launches of it queued back to back (queued_ms) give the
+# card's floor for a launch of a given grid, which no design of a kernel
+# can go under. Built by phase 2 beside the kernels.
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int strawb_empty_launches(int g0, int g1, int threads,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g0 > 0) empty_kernel<<<g0, threads, 0, s>>>();
+  if (g1 > 0) empty_kernel<<<g1, threads, 0, s>>>();
+  return cudaGetLastError();
+}
+"""
+EMPTY_LIB = os.path.join(WORK, "libempty_launch.so")
+
+
+def start_probe_builds():
+    """Start nvcc on the empty kernel, and `nvcc -Xptxas -v` on
+    csrc/quant_prep.cu (registers, spills and shared memory of its
+    __global__ function); returns the processes for
+    finish_probe_builds."""
+    from strawberry_tpu_torch.utils import kernels
+    os.makedirs(WORK, exist_ok=True)
+    src = os.path.join(WORK, "empty_launch.cu")
+    with open(src, "w") as f:
+        f.write(EMPTY_CU)
+    nvcc = kernels._nvcc()
+    run = lambda argv: subprocess.Popen(  # noqa: E731
+        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return {"empty": run([nvcc, *kernels.NVCC_FLAGS, "-o", EMPTY_LIB, src]),
+            "ptxas": run([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
+                          os.path.join(WORK, "quant_prep.cubin"),
+                          os.path.join(kernels.CSRC, "quant_prep.cu")])}
+
+
+def parse_ptxas(text, functions):
+    """{function: {registers, spill_stores, spill_loads, smem_bytes}} from
+    ptxas's -v report, for the named __global__ functions."""
+    report, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            fn = next((f for f in functions if f in m.group(1)), None)
+            continue
+        if fn is None:
+            continue
+        r = report.setdefault(fn, {})
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                r[key] = int(m.group(1))
+    return report
+
+
+def finish_probe_builds(procs):
+    """Wait for start_probe_builds' processes; returns the prep kernel's
+    ptxas report (parse_ptxas)."""
+    texts = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        require(proc.returncode == 0, f"nvcc ({name}) failed:\n{err}")
+        texts[name] = out + err
+    functions = KERNEL_FUNCTIONS["quant_prep"]
+    report = parse_ptxas(texts["ptxas"], functions)
+    require(set(report) == set(functions),
+            f"ptxas reported {sorted(report)} for quant_prep.cu")
+    return report
+
+
+def empty_launches_ms(grids, threads=256, reps=20):
+    """The time on the card of launches of the empty kernel with these
+    grids (one or two), queued as queued_ms queues them."""
+    import ctypes as C
+    from strawberry_tpu_torch.utils.kernels import stream_handle
+    lib = C.CDLL(EMPTY_LIB)
+    fn = lib.strawb_empty_launches
+    fn.restype = C.c_int
+    fn.argtypes = [C.c_int, C.c_int, C.c_int, C.c_void_p]
+    g0, g1 = (list(grids) + [0])[:2]
+
+    def launch():
+        require(fn(g0, g1, threads, stream_handle(0)) == 0,
+                "the empty kernel did not launch")
+    return queued_ms(launch, reps)
 
 
 def measured(x, fmt=".4f"):
@@ -481,28 +581,20 @@ def summed(parts):
 
 
 # --------------------------------------------------------------- phase 3b
-def synthetic_prep_chunk(seed, n_iso=32, n_loci=16):
-    """The kernel inputs of a seeded synthetic chunk of device-prep loci,
-    as quant/device_prep.py marshals them: (arrays, tables, P), tables =
-    (exl, exr, nex, inl, inn). Reads are drawn on the loci's isoforms and
-    then perturbed to hit the kernels' edge cases: a feature shifted off
-    its exon, an intron one base off, a MATCH past the last exon (candidate
-    exon == exon count), an intron after the last exon, a non-MATCH first
-    feature, gaps, padded feature slots, a hit with no features, a locus
-    with no hits, isoforms of 1 and 64 exons (clamped candidate and cursor
-    indices), 16-feature hits and a locus with 128 segments. The port's
-    tests use it too."""
+def prep_tables(rng, exon_counts):
+    """Seeded isoform tables (exl, exr, nex, inl, inn) as
+    device_prep.isoform_tables builds them (exr padded with INT32_MAX), an
+    isoform a count of `exon_counts` (None: 1-64, drawn)."""
     import numpy as np
-    from strawberry_tpu_torch.quant.device_prep import marshal
-    rng = np.random.default_rng(seed)
+    n_iso = len(exon_counts)
     i32max = 2**31 - 1
     exl = np.zeros((n_iso, 64), np.int32)
     exr = np.full((n_iso, 64), i32max, np.int32)
     inl = np.zeros((n_iso, 64), np.int32)
     inn = np.zeros((n_iso, 64), np.int32)
     nex = np.zeros(n_iso, np.int32)
-    for t in range(n_iso):
-        ne = (1, 64, 2)[t] if t < 3 else int(rng.integers(1, 65))
+    for t, ne in enumerate(exon_counts):
+        ne = int(rng.integers(1, 65)) if ne is None else ne
         pos = int(rng.integers(1000, 1_000_000))
         for e in range(ne):
             ln = int(rng.integers(5, 200))
@@ -513,67 +605,68 @@ def synthetic_prep_chunk(seed, n_iso=32, n_loci=16):
                 inl[t, e], inn[t, e] = pos, gap
                 pos += gap
         nex[t] = ne
+    return exl, exr, nex, inl, inn
 
-    def read_on(t):
-        ne = int(nex[t])
-        e = int(rng.integers(0, ne))
-        f = []
-        for k in range(int(rng.integers(1, 9))):
-            a = int(exl[t, e]) if f and f[-1][0] == 1 else \
-                int(rng.integers(exl[t, e], exr[t, e] + 1))
-            b = int(rng.integers(a, exr[t, e] + 1))
-            f.append([0, a, b - a + 1])
-            if e == ne - 1:
-                break
-            r = rng.random()
-            if r < 0.65:    # the isoform's intron
-                f.append([1, int(inl[t, e]), int(inn[t, e])])
-                e += 1
-            elif r < 0.8:   # a gap inside the exon
-                f.append([2, b + 1, int(rng.integers(1, 30))])
-            else:           # an intron one base off
-                f.append([1, int(inl[t, e]) + 1, int(inn[t, e])])
-                e += 1
-        last = int(exr[t, ne - 1])
+
+def read_on(rng, tables, t):
+    """A read's features drawn on isoform t, then perturbed: a feature
+    shifted off its exon, an intron one base off, a MATCH past the last
+    exon (candidate exon == exon count), an intron after the last exon, a
+    non-MATCH first feature, gaps."""
+    exl, exr, nex, inl, inn = tables
+    ne = int(nex[t])
+    e = int(rng.integers(0, ne))
+    f = []
+    for k in range(int(rng.integers(1, 9))):
+        a = int(exl[t, e]) if f and f[-1][0] == 1 else \
+            int(rng.integers(exl[t, e], exr[t, e] + 1))
+        b = int(rng.integers(a, exr[t, e] + 1))
+        f.append([0, a, b - a + 1])
+        if e == ne - 1:
+            break
         r = rng.random()
-        if r < 0.1:
-            f[0][1] -= 1                       # may leave its exon
-            f[0][2] += 1
-        elif r < 0.2:
-            f.append([0, last + 5, 20])        # past the last exon
-        elif r < 0.3:
-            f.append([1, last + 1, 50])        # intron after the last exon
-        elif r < 0.35:
-            f.insert(0, [2, f[0][1] - 10, 10])  # non-MATCH first feature
-        return f[:16]
+        if r < 0.65:    # the isoform's intron
+            f.append([1, int(inl[t, e]), int(inn[t, e])])
+            e += 1
+        elif r < 0.8:   # a gap inside the exon
+            f.append([2, b + 1, int(rng.integers(1, 30))])
+        else:           # an intron one base off
+            f.append([1, int(inl[t, e]) + 1, int(inn[t, e])])
+            e += 1
+    last = int(exr[t, ne - 1])
+    r = rng.random()
+    if r < 0.1:
+        f[0][1] -= 1                       # may leave its exon
+        f[0][2] += 1
+    elif r < 0.2:
+        f.append([0, last + 5, 20])        # past the last exon
+    elif r < 0.3:
+        f.append([1, last + 1, 50])        # intron after the last exon
+    elif r < 0.35:
+        f.insert(0, [2, f[0][1] - 10, 10])  # non-MATCH first feature
+    return f[:16]
 
-    def long_read(t, e0, n):
-        """n features alternating MATCH/INTRON from exon e0 of isoform t"""
-        f, e = [], e0
-        while len(f) < n:
-            f.append([0, int(exl[t, e]), int(exr[t, e] - exl[t, e] + 1)])
-            if len(f) < n:
-                f.append([1, int(inl[t, e]), int(inn[t, e])])
-                e += 1
-        return f
 
-    loc_iso, loc_hits = [], []
-    for loc in range(n_loci):
-        ids = [0, 1, 2] if loc == 0 else \
-            list(rng.choice(n_iso, int(rng.integers(1, 6)), replace=False))
-        nh = 0 if loc == 3 else int(rng.integers(1, 26))
-        hits = [read_on(int(rng.choice(ids)) if rng.random() < 0.85
-                        else int(rng.integers(n_iso))) for _ in range(nh)]
-        if loc == 0:
-            e63 = int(exr[1, 63])
-            hits += [long_read(1, 10, 16), long_read(1, 48, 15),
-                     [[0, int(exl[1, 63]), 5], [1, e63 + 1, 40]],
-                     [[0, e63 + 5, 20], [1, e63 + 30, 40], [0, e63 + 80, 9]],
-                     [[0, int(exl[0, 0]), 3], [1, int(exr[0, 0]) + 1, 7]],
-                     []]                       # a hit with no features
-        loc_iso.append([int(i) for i in ids])
-        loc_hits.append(hits)
+def long_read(tables, t, e0, n):
+    """n features alternating MATCH/INTRON from exon e0 of isoform t"""
+    exl, exr, _nex, inl, inn = tables
+    f, e = [], e0
+    while len(f) < n:
+        f.append([0, int(exl[t, e]), int(exr[t, e] - exl[t, e] + 1)])
+        if len(f) < n:
+            f.append([1, int(inl[t, e]), int(inn[t, e])])
+            e += 1
+    return f
 
+
+def assemble_prep_chunk(rng, tables, loc_iso, loc_hits, full_segs=(0,)):
+    """The marshalled chunk (arrays, tables, P) of loci with the isoform
+    ids `loc_iso` and the reads `loc_hits`, with seeded disjoint segments
+    near each locus's isoforms: 128 for the loci in `full_segs`, 1-128
+    (drawn) for the others."""
+    import numpy as np
+    from strawberry_tpu_torch.quant.device_prep import marshal
+    exl = tables[0]
     hits = [h for hs in loc_hits for h in hs]
     feats = [x for h in hits for x in h]
     h_off = np.concatenate([[0], np.cumsum([len(h) for h in hits])])
@@ -584,23 +677,90 @@ def synthetic_prep_chunk(seed, n_iso=32, n_loci=16):
         np.diff(hit_loc) * np.diff(d_iso_off))])
     seg_off, seg_l, seg_r = [0], [], []
     for loc, ids in enumerate(loc_iso):
-        pos = int(exl[ids].min()) - 200
-        for _ in range(128 if loc == 0 else int(rng.integers(1, 129))):
+        pos = (int(exl[ids].min()) if len(ids) else 1000) - 200
+        for _ in range(128 if loc in full_segs else int(rng.integers(1, 129))):
             a = pos + int(rng.integers(0, 300))
             b = a + int(rng.integers(0, 300))
             seg_l.append(a)
             seg_r.append(b)
             pos = b + 1
         seg_off.append(len(seg_l))
-    code, left, ln = (np.array([x[k] for x in feats], np.int64)
+    code, left, ln = (np.array([x[k] for x in feats], np.int64).reshape(-1)
                       for k in range(3))
     arrays = marshal(hit_loc.astype(np.int64), h_off.astype(np.int64),
                      code.astype(np.int8), left, ln.astype(np.int32),
                      d_iso_off.astype(np.int64), d_iso_idx,
                      pair_base.astype(np.int64), np.array(seg_off),
                      np.array(seg_l, np.int64), np.array(seg_r, np.int64),
-                     np.arange(n_loci))
-    return arrays, (exl, exr, nex, inl, inn), int(pair_base[-1])
+                     np.arange(len(loc_iso)))
+    return arrays, tables, int(pair_base[-1])
+
+
+def synthetic_prep_chunk(seed, n_iso=32, n_loci=16):
+    """The kernel inputs of a seeded synthetic chunk of device-prep loci,
+    as quant/device_prep.py marshals them: (arrays, tables, P), tables =
+    (exl, exr, nex, inl, inn). Reads are drawn on the loci's isoforms and
+    then perturbed to hit the kernel's edge cases (read_on), with a hit
+    with no features, a locus with no hits, isoforms of 1 and 64 exons
+    (clamped candidate and cursor indices), 16-feature hits and a locus
+    with 128 segments. The port's tests use it too."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tables = prep_tables(rng, [1, 64, 2] + [None] * (n_iso - 3))
+    exl, exr = tables[:2]
+    loc_iso, loc_hits = [], []
+    for loc in range(n_loci):
+        ids = [0, 1, 2] if loc == 0 else \
+            list(rng.choice(n_iso, int(rng.integers(1, 6)), replace=False))
+        nh = 0 if loc == 3 else int(rng.integers(1, 26))
+        hits = [read_on(rng, tables, int(rng.choice(ids))
+                        if rng.random() < 0.85 else int(rng.integers(n_iso)))
+                for _ in range(nh)]
+        if loc == 0:
+            e63 = int(exr[1, 63])
+            hits += [long_read(tables, 1, 10, 16),
+                     long_read(tables, 1, 48, 15),
+                     [[0, int(exl[1, 63]), 5], [1, e63 + 1, 40]],
+                     [[0, e63 + 5, 20], [1, e63 + 30, 40], [0, e63 + 80, 9]],
+                     [[0, int(exl[0, 0]), 3], [1, int(exr[0, 0]) + 1, 7]],
+                     []]                       # a hit with no features
+        loc_iso.append([int(i) for i in ids])
+        loc_hits.append(hits)
+    return assemble_prep_chunk(rng, tables, loc_iso, loc_hits)
+
+
+def edge_prep_chunks(seed=11):
+    """{name: (arrays, tables, P)}: seeded chunks at the edges of the tile
+    kernel's design, on one set of tables (24 isoforms of 1-64 exons, then
+    200 of 64): a locus of 32,000 pairs (20 isoforms, 1,600 hits), which
+    spans many tiles; a locus of 200 isoforms of 64 exons, whose tables
+    exceed what a block stages at once; loci with no hits, first, last and
+    in a row; and hits whose loci have no isoforms (P == 0, H > 0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tables = prep_tables(rng, [None] * 24 + [64] * 200)
+
+    def reads(ids, n):
+        return [read_on(rng, tables, int(rng.choice(ids))) for _ in range(n)]
+
+    small = [[20, 21], [22]]
+    long_ids = list(range(20))
+    many = list(range(24, 224))
+    out = {}
+    out["long_locus"] = assemble_prep_chunk(
+        rng, tables, [long_ids] + small,
+        [reads(long_ids, 1600)] + [reads(i, 7) for i in small])
+    out["200_isoforms"] = assemble_prep_chunk(
+        rng, tables, small + [many],
+        [reads(i, 5) for i in small] + [reads(many, 12)], full_segs=(2,))
+    no_hits = [[0, 1], [2], [3, 4, 5], [6], [7, 8], [9]]
+    out["loci_without_hits"] = assemble_prep_chunk(
+        rng, tables, no_hits,
+        [reads(ids, n) for ids, n in zip(no_hits, (0, 6, 0, 0, 9, 0))])
+    out["no_pairs"] = assemble_prep_chunk(
+        rng, tables, [[], [], []],
+        [reads([10, 11], 4), reads([12], 3), reads([13], 2)])
+    return out
 
 
 def prep_inputs(arrays, tables, dev):
@@ -631,17 +791,20 @@ def prep_bound(x, arrays, outputs):
         ops += int(ni[loc]) * int(feats[h1] - feats[h0]) + (h1 - h0) * segs
     tables = (x.exl, x.exr, x.nex, x.inl, x.inn)
     row_bytes = sum(t[0].numel() * t.element_size() for t in tables)
-    nbytes = (sum(t.numel() * t.element_size() for t in (*x, *outputs))
+    # `kern`'s inputs (not the tile table, which is the kernel's own)
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in (*x[:17], *outputs))
               - sum(t.numel() * t.element_size() for t in tables)
               + len(np.unique(arrays["iso_idx"])) * row_bytes)
     return bound(ops, nbytes, "int")
 
 
 def compare_prep(dev, arrays, tables, P, what):
-    """The prep kernels against their plain version on one chunk:
-    array-equal, two runs identical; returns {ms (CUDA events over
-    back-to-back calls), device_ms (the time on the card, queued_ms),
-    plain_ms, max_abs_err, bound_ms, bound_by}."""
+    """The prep kernel against its plain version on one chunk: array-equal,
+    two runs identical; returns {ms (CUDA events over back-to-back calls),
+    device_ms (the time on the card, queued_ms), launch_floor_ms (an empty
+    kernel of the same grid, queued the same way), plain_ms, max_abs_err,
+    bound_ms, bound_by}."""
     import torch
     from strawberry_tpu_torch.quant.cuda_prep import (quant_prep_cuda,
                                                       quant_prep_reference)
@@ -651,24 +814,28 @@ def compare_prep(dev, arrays, tables, P, what):
     cr, rr = quant_prep_reference(x, P)
     torch.cuda.synchronize()
     require(torch.equal(ck, ck2) and torch.equal(rk, rk2),
-            f"{what}: prep kernels not identical across runs")
+            f"{what}: prep kernel not identical across runs")
     err = max((ck.int() - cr.int()).abs().max().item() if P else 0,
               (rk.int() - rr.int()).abs().max().item() if len(rk) else 0)
     require(torch.equal(ck, cr) and torch.equal(rk, rr),
-            f"{what}: prep kernels differ from the plain version "
+            f"{what}: prep kernel differs from the plain version "
             f"(max abs err {err})")
     n_ok = int(ck.sum().item())
-    require(0 < n_ok < P, f"{what}: {n_ok} of {P} pairs compatible; the "
-            "chunk must have both")
+    require(P == 0 or 0 < n_ok < P, f"{what}: {n_ok} of {P} pairs "
+            "compatible; the chunk must have both")
     ms = cuda_ms(lambda: quant_prep_cuda(x, P), reps=20)
     dev_ms = queued_ms(lambda: quant_prep_cuda(x, P), reps=20)
     plain_ms = cuda_ms(lambda: quant_prep_reference(x, P), reps=3)
+    grid = len(arrays["tiles"])
+    floor_ms = empty_launches_ms([grid])
     b = prep_bound(x, arrays, (ck, rk))
     log(f"  {what}: {P} pairs ({n_ok} compatible), {len(rk)} hits, "
-        f"{len(arrays['ni'])} loci: kernel {ms:.4f} ms (on the card "
-        f"{dev_ms:.6f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{len(arrays['ni'])} loci, {grid} tiles: kernel {ms:.4f} ms (on "
+        f"the card {dev_ms:.6f} ms; an empty launch of {grid} blocks "
+        f"{floor_ms:.6f} ms), plain {plain_ms:.4f} ms, bound "
         f"{b['bound_ms']:.6f} ms ({b['bound_by']}), array-equal")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "launch_floor_ms": floor_ms, "tiles": grid,
             "max_abs_err": float(err), "pairs": P, "hits": len(rk), **b}
 
 
@@ -1093,7 +1260,7 @@ KERNELS = ("em_bucket", "quant_prep", "mcf_bucket", "shard_reduce")
 # the __global__ functions of each kernel source, as the profiler names them
 KERNEL_FUNCTIONS = {"em_bucket": ("em_warp_kernel", "em_rows_kernel",
                                   "em_strip_kernel"),
-                    "quant_prep": ("compat_kernel", "rows_kernel"),
+                    "quant_prep": ("prep_tile_kernel",),
                     "mcf_bucket": ("mcf_warp_kernel", "mcf_block_kernel"),
                     "shard_reduce": ("shard_colsum_kernel",)}
 
@@ -1300,26 +1467,26 @@ def require_no_launches(run, what):
 def prep_runs(base, host):
     """`-g -r` under STRAWB_DEVICE_PREP=all and =budget: the default's GTF
     body byte for byte, device loci and prep launches in each. Returns
-    ({mode: Run}, the first full chunk of the "all" run as (arrays, tables,
-    P))."""
+    ({mode: Run}, every chunk of the "all" run as (arrays, P), the
+    isoform tables)."""
     import copy
     from strawberry_tpu_torch.quant import device_prep
-    chunks = []
+    chunks, tables = [], []
     launch = device_prep.launch
 
     def recording_launch(state, arrays, P):
-        # the first chunk of at least 100 device loci (a full 128-locus
-        # flush less its host-routed loci)
-        if not chunks and len(arrays["ni"]) >= 100:
-            chunks.append((copy.deepcopy(arrays), [
-                state.tables[k].cpu().numpy()
-                for k in device_prep._TABLES], P))
+        if recording:
+            chunks.append((copy.deepcopy(arrays), P))
+            if not tables:
+                tables.extend(state.tables[k].cpu().numpy()
+                              for k in device_prep._TABLES)
         return launch(state, arrays, P)
 
     runs = {}
     device_prep.launch = recording_launch
     try:
         for mode in ("all", "budget"):
+            recording = mode == "all"
             runs[mode] = r = run_cli(f"g_r_prep_{mode}", base,
                                      {"STRAWB_DEVICE_PREP": mode})
             stats = r.sample.prep_stats
@@ -1337,8 +1504,50 @@ def prep_runs(base, host):
                 f"the default's")
     finally:
         device_prep.launch = launch
-    require(chunks, "STRAWB_DEVICE_PREP=all made no chunk of 100 loci")
-    return runs, chunks[0]
+    require(len(chunks) == runs["all"].launches["quant_prep"],
+            f"STRAWB_DEVICE_PREP=all: {len(chunks)} chunks recorded, "
+            f"{runs['all'].launches['quant_prep']} launches")
+    return runs, chunks, tables
+
+
+def chunk_shapes(chunks):
+    """The shapes of a run's prep chunks: loci, pairs and hits a chunk, the
+    pairs of its largest locus, and the isoforms, exons a locus's isoform
+    and features a hit at most (min / median / max over the chunks)."""
+    import numpy as np
+    rows = []
+    for arrays, P in chunks:
+        nh = np.diff(arrays["hit_off"])
+        rows.append((len(arrays["ni"]), P, len(arrays["goff"]),
+                     int((nh * arrays["ni"]).max()),
+                     int(arrays["ni"].max()), int(arrays["nf"].max())))
+    a = np.array(rows)
+    return {k: [int(a[:, i].min()), float(np.median(a[:, i])),
+                int(a[:, i].max())]
+            for i, k in enumerate(("loci", "pairs", "hits",
+                                   "largest_locus_pairs", "max_isoforms",
+                                   "max_features"))}
+
+
+def check_prep_chunks(dev, chunks, tables):
+    """The prep kernel against its plain version on every chunk of a run,
+    array-equal (the wrapper's launches here are not the run's)."""
+    import torch
+    from strawberry_tpu_torch.quant.cuda_prep import (quant_prep_cuda,
+                                                      quant_prep_reference)
+    for i, (arrays, P) in enumerate(chunks):
+        x = prep_inputs(arrays, tables, dev)
+        ck, rk = quant_prep_cuda(x, P)
+        cr, rr = quant_prep_reference(x, P)
+        require(torch.equal(ck, cr) and torch.equal(rk, rr),
+                f"prep chunk {i} of the STRAWB_DEVICE_PREP=all run "
+                f"({P} pairs, {len(rk)} hits): kernel differs from the "
+                "plain version")
+    shapes = chunk_shapes(chunks)
+    log(f"  every one of the {len(chunks)} prep chunks of the "
+        f"STRAWB_DEVICE_PREP=all run array-equal to the plain version; "
+        f"chunk shapes (min / median / max) {shapes}")
+    return {"chunks": len(chunks), "shapes": shapes}
 
 
 def mcf_runs(gtf, bam, g_host):
@@ -1685,7 +1894,7 @@ def end_to_end(n_frags, dev):
     require(set(tpms(dev_em.out)) == set(ref), "STRAWB_DEVICE_EM=1 "
             "transcript set differs from the default's")
 
-    preps, prep_chunk = prep_runs(base, host)
+    preps, prep_chunks, prep_tables = prep_runs(base, host)
 
     g_host = run_cli("g_host", ["-g", gtf, "--fr", bam], {})
     require_no_launches(g_host, "default -g")
@@ -1717,7 +1926,15 @@ def end_to_end(n_frags, dev):
             compare_bucket(dev, b, f"main-path tier {t}")
             for t, b in sorted(fast.d.buckets.items())}
     require(real, "--fast-em filled no tier bucket")
-    real_prep = compare_prep(dev, *prep_chunk, "main-path prep chunk")
+    # the first chunk of at least 100 device loci (a full 128-locus flush
+    # less its host-routed loci)
+    main_chunk = next((c for c in prep_chunks if len(c[0]["ni"]) >= 100),
+                      None)
+    require(main_chunk, "STRAWB_DEVICE_PREP=all made no chunk of 100 loci")
+    real_prep = compare_prep(dev, main_chunk[0], prep_tables, main_chunk[1],
+                             "main-path prep chunk")
+    real_prep["all_chunks"] = check_prep_chunks(dev, prep_chunks,
+                                                prep_tables)
     real_mcf = main_path_mcf(dev, mcf_calls)
     real_rows = {("2 processes " if k == "dist" else "--shards 4 ")
                  + "x".join(map(str, r.shape)):
@@ -1759,13 +1976,15 @@ def end_to_end(n_frags, dev):
 # --------------------------------------------------------------- phase 5
 def read_trace(path):
     """A Chrome trace's kernel events of every __global__ function of
-    KERNEL_FUNCTIONS (whole names, as profiled_run matches them), its
-    device busy time (the kernels', copies' and sets' durations summed, as
-    profiled_run sums the profiler's device times), its event count and
-    the names of its phase ranges."""
+    KERNEL_FUNCTIONS (whole names, as profiled_run matches them), with
+    each function's total and mean kernel duration (the events' `dur`),
+    its device busy time (the kernels', copies' and sets' durations
+    summed, as profiled_run sums the profiler's device times), its event
+    count and the names of its phase ranges."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     counts = {fn: 0 for fns in KERNEL_FUNCTIONS.values() for fn in fns}
+    dur_us = dict.fromkeys(counts, 0.0)
     busy_us, ranges = 0.0, set()
     for e in events:
         cat = str(e.get("cat", "")).lower()
@@ -1775,10 +1994,15 @@ def read_trace(path):
             for fn in counts:
                 if re.search(rf"\b{fn}\b", e.get("name", "")):
                     counts[fn] += 1
+                    dur_us[fn] += float(e.get("dur", 0.0))
         elif cat == "user_annotation":
             ranges.add(e.get("name"))
-    return {"counts": counts, "busy_ms": busy_us / 1e3,
-            "events": len(events), "ranges": sorted(ranges)}
+    kernel_ms = {fn: {"total_ms": dur_us[fn] / 1e3,
+                      "mean_ms": dur_us[fn] / 1e3 / counts[fn]}
+                 for fn in counts if counts[fn]}
+    return {"counts": counts, "kernel_ms": kernel_ms,
+            "busy_ms": busy_us / 1e3, "events": len(events),
+            "ranges": sorted(ranges)}
 
 
 def traced_process(name, argv, env):
@@ -1831,6 +2055,7 @@ def trace_phase(n_frags, e2e):
             "wall_s": rep["wall_s"], "trace_s": rep["trace_s"],
             "launches": rep["launches"],
             "function_launches": launched, "trace_counts": tr["counts"],
+            "trace_kernel_ms": tr["kernel_ms"],
             "trace_events": tr["events"], "ranges": tr["ranges"],
             "device_busy_ms": tr["busy_ms"],
             "idle_share": 1 - tr["busy_ms"] / wall_ms,
@@ -1839,7 +2064,8 @@ def trace_phase(n_frags, e2e):
                 "wall_s", "device_busy_ms", "idle_share")}}
         log(f"  traced {name}: GTF body byte-identical to the untraced "
             f"run's; kernel events {tr['counts']} against launches "
-            f"{launched}; EM events {em_events}, EM launches "
+            f"{launched}, their device time {tr['kernel_ms']}; EM "
+            f"events {em_events}, EM launches "
             f"{rep['launches']['em_bucket']}; {tr['events']} events; wall "
             f"{rep['wall_s']:.3f} s (starting the trace "
             f"{rep['trace_s']['start']:.3f} s, stopping it "
@@ -2019,6 +2245,7 @@ def main():
             built["error"] = e
         built["s"] = time.perf_counter() - t0
 
+    probes = start_probe_builds()
     nvcc = threading.Thread(target=build_kernels)
     nvcc.start()  # nvcc runs while the host library builds
     t0 = time.perf_counter()
@@ -2030,6 +2257,8 @@ def main():
         raise built["error"]
     for name in KERNELS:
         kernels.load(name)
+    ptxas = finish_probe_builds(probes)
+    log(f"  ptxas, csrc/quant_prep.cu: {ptxas}")
     require(torch.distributed.is_available()
             and torch.distributed.is_gloo_available(),
             "torch.distributed with gloo is needed for the 2-process run")
@@ -2039,10 +2268,14 @@ def main():
     log("phase 3: EM kernel vs plain version at the four tier shapes")
     rep = check_kernel(dev)
 
-    log("phase 3b: quant-prep kernels vs plain version, synthetic chunks")
-    prep = summed({f"synthetic_{seed}": compare_prep(
+    log("phase 3b: quant-prep kernel vs plain version, synthetic and edge "
+        "chunks")
+    prep_parts = {f"synthetic_{seed}": compare_prep(
         dev, *synthetic_prep_chunk(seed), f"synthetic chunk {seed}")
-        for seed in (7, 8)})
+        for seed in (7, 8)}
+    for name, chunk in edge_prep_chunks().items():
+        prep_parts[name] = compare_prep(dev, *chunk, f"edge chunk {name}")
+    prep = summed(prep_parts)
     prep["device_ms"] = sum(r["device_ms"] for r in prep["parts"].values())
 
     log("phase 3c: MCF kernel vs plain version and solve_dense")
@@ -2089,6 +2322,7 @@ def main():
          "tolerance": "array-equal to the plain version (compat and rows); "
                       "two runs identical",
          "launches": e2e["launches"]["quant_prep"], **prep,
+         "ptxas": ptxas,
          "main_path_chunk": e2e["main_path_prep_chunk"]},
         {"name": "mcf_bucket", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/mcf_bucket.cu",

@@ -1,18 +1,22 @@
-"""Device quant prep's integer kernels: the hand-written CUDA kernels
-(csrc/quant_prep.cu) and their plain PyTorch version.
+"""Device quant prep's integer kernel: the hand-written CUDA kernel
+(csrc/quant_prep.cu) and its plain PyTorch version.
 
 The counterpart of strawberry_tpu/quant/device_prep.py::_make_kernel (the
 jitted `kern` behind STRAWB_DEVICE_PREP). The inputs are the same int32
 arrays in the same order, but on their exact sizes: the JAX package pads
 them to fixed tiers for XLA's static shapes, which changes no output
-below the real pair and hit counts.
+below the real pair and hit counts. The kernel also takes a tile table
+(`prep_tiles`), built on the host beside the other inputs.
 
-- `quant_prep_cuda`: the kernels' wrapper (CUDA tensors only).
+- `prep_tiles`: the tile table, a block of the kernel a row: up to
+  TILE_HITS consecutive hits of one locus, about TILE_PAIRS pairs.
+- `quant_prep_cuda`: the kernel's wrapper (CUDA tensors only).
 - `quant_prep_reference`: the plain PyTorch version, a line-for-line
   transcription of `kern` (searchsorted, gather, cummax), run over chunks
-  of pairs and hits to bound its (pairs, 16, 64) intermediate. The CPU
-  tests run it, and the chip smoke holds the kernels against it.
-- `quant_prep`: the plain version for CPU tensors, the kernels for CUDA
+  of pairs and hits to bound its (pairs, 16, 64) intermediate. It ignores
+  the tile table. The CPU tests run it, and the chip smoke holds the
+  kernel against it.
+- `quant_prep`: the plain version for CPU tensors, the kernel for CUDA
   tensors. It never falls back from one to the other.
 
 Each returns (compat uint8 (P,), rows uint8 (H, 16)).
@@ -22,19 +26,24 @@ from __future__ import annotations
 import ctypes as C
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..utils.kernels import Entry
+from ..utils.kernels import Entry, stream_handle
 
 F_MAX = 16    # features per hit
 E_MAX = 64    # exons per isoform
 S_MAX = 128   # disjoint segments per locus
 ROW_BYTES = S_MAX // 8
 I32MAX = 2**31 - 1
+TILE_PAIRS = 128  # pairs a tile, unless one hit's isoforms are more
+TILE_HITS = 16    # hits a tile, at most (kTileHits in csrc/quant_prep.cu)
+TILE_INTS = 8     # locus, first hit, hits, first pair, ni, iso_off, 0, 0
 
 
 class PrepInputs(NamedTuple):
-    """The kernels' int32 inputs, in `kern`'s argument order."""
+    """The kernel's int32 inputs: `kern`'s, in its argument order, then
+    the tile table."""
     gcode: torch.Tensor      # (NF,) feature codes (0 MATCH, 1 INTRON)
     gleft: torch.Tensor      # (NF,)
     glen: torch.Tensor       # (NF,)
@@ -52,6 +61,34 @@ class PrepInputs(NamedTuple):
     ni: torch.Tensor         # (NL,) isoforms per locus
     segl: torch.Tensor       # (NL, 128) segment lefts, padded INT32_MAX
     segr: torch.Tensor       # (NL, 128) segment rights, padded -1
+    tiles: torch.Tensor      # (NT, 8) prep_tiles' table
+
+
+def prep_tiles(hit_off, ni, pair_base, iso_off) -> np.ndarray:
+    """The kernel's tile table, (NT, TILE_INTS) int32: each locus's hits
+    cut, in order, into runs of min(TILE_HITS, TILE_PAIRS // ni) hits (at
+    least one). Row: locus l, first hit h0, hit count n, first pair
+    pair_base[l] + (h0 - hit_off[l]) * ni[l], then ni[l] and iso_off[l];
+    the tile's pairs are the next n * ni[l]. A locus with no hits has no
+    tile. The arrays are a chunk's, as device_prep.marshal lays it out."""
+    hit_off, ni, pair_base, iso_off = (np.asarray(a, np.int64) for a in (
+        hit_off, ni, pair_base, iso_off))
+    nh = hit_off[1:] - hit_off[:-1]
+    if (nh < 0).any() or (ni < 0).any():
+        raise ValueError("hit_off must not decrease, ni must not be < 0")
+    per = np.clip(TILE_PAIRS // np.maximum(ni, 1), 1, TILE_HITS)
+    nt = -(-nh // per)
+    loc = np.repeat(np.arange(len(ni)), nt)
+    j = np.arange(len(loc)) - np.repeat(np.cumsum(nt) - nt, nt)
+    h0 = hit_off[loc] + j * per[loc]
+    tiles = np.zeros((len(loc), TILE_INTS), np.int32)
+    tiles[:, 0] = loc
+    tiles[:, 1] = h0
+    tiles[:, 2] = np.minimum(per[loc], hit_off[loc + 1] - h0)
+    tiles[:, 3] = pair_base[loc] + (h0 - hit_off[loc]) * ni[loc]
+    tiles[:, 4] = ni[loc]
+    tiles[:, 5] = iso_off[loc]
+    return tiles
 
 
 def _hit_features(x: PrepInputs):
@@ -146,71 +183,88 @@ def quant_prep_reference(x: PrepInputs, P: int, chunk: int = 1 << 15):
     return compat, rows
 
 
+def _shapes(x: PrepInputs):
+    H, NF, T = x.goff.shape[0], x.gcode.shape[0], x.nex.shape[0]
+    NL, NI = x.ni.shape[0], x.iso_idx.shape[0]
+    return ((NF,), (NF,), (NF,), (H,), (H,), (T, E_MAX), (T, E_MAX), (T,),
+            (T, E_MAX), (T, E_MAX), (NL + 1,), (NL + 1,), (NL + 1,), (NI,),
+            (NL,), (NL, S_MAX), (NL, S_MAX), (x.tiles.shape[0], TILE_INTS))
+
+
 def _check(x: PrepInputs, P: int):
-    H = x.goff.shape[0]
-    NF = x.gcode.shape[0]
-    T = x.nex.shape[0]
-    NL = x.ni.shape[0]
-    NI = x.iso_idx.shape[0]
-    want = {"gcode": (NF,), "gleft": (NF,), "glen": (NF,), "goff": (H,),
-            "nf": (H,), "exl": (T, E_MAX), "exr": (T, E_MAX), "nex": (T,),
-            "inl": (T, E_MAX), "inn": (T, E_MAX), "pair_base": (NL + 1,),
-            "hit_off": (NL + 1,), "iso_off": (NL + 1,), "iso_idx": (NI,),
-            "ni": (NL,), "segl": (NL, S_MAX), "segr": (NL, S_MAX)}
-    for name, shape in want.items():
-        t = getattr(x, name)
-        if tuple(t.shape) != shape or t.dtype != torch.int32:
-            raise ValueError(f"{name}: expected {shape} int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != x.goff.device:
-            raise ValueError(f"{name} is on {t.device}, goff on "
-                             f"{x.goff.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if P < 0 or (P > 0 and min(H, NF, NL, NI) == 0) or \
-            (H > 0 and min(NF, NL) == 0):
+    """Raise ValueError on inputs the kernel does not take: one pass over
+    the tensors' shapes, types, devices and contiguity, and the naming of
+    the first fault only when there is one."""
+    want = _shapes(x)
+    i32, dev = torch.int32, x.goff.get_device()
+    if not all(t.shape == shape and t.dtype == i32 and t.get_device() == dev
+               and t.is_contiguous() for t, shape in zip(x, want)):
+        for name, t, shape in zip(PrepInputs._fields, x, want):
+            if tuple(t.shape) != shape or t.dtype != i32:
+                raise ValueError(f"{name}: expected {shape} int32, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+            if t.get_device() != dev:
+                raise ValueError(f"{name} is on {t.device}, goff on "
+                                 f"{x.goff.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+    H, NF, NL, NI, NT = (want[3][0], want[0][0], want[14][0], want[13][0],
+                         want[-1][0])
+    if P < 0 or (P > 0 and min(H, NF, NL, NI, NT) == 0) or \
+            (H > 0 and min(NF, NL, NT) == 0):
         raise ValueError(f"P={P} pairs over H={H} hits, NF={NF} features, "
-                         f"NL={NL} loci, NI={NI} isoform ids")
+                         f"NL={NL} loci, NI={NI} isoform ids, NT={NT} tiles")
     if max(P, H * ROW_BYTES) >= 2**31:
-        raise ValueError(f"P={P}, H={H}: the kernels index with int32")
+        raise ValueError(f"P={P}, H={H}: the kernel indexes with int32")
+    if any(t.data_ptr() % 16 for t in (x.exl, x.exr, x.inl, x.inn,
+                                        x.tiles)):
+        raise ValueError("exl, exr, inl, inn and tiles must be 16-byte "
+                         "aligned")
 
 
 def quant_prep_cuda(x: PrepInputs, P: int):
-    """Launch csrc/quant_prep.cu (the compat and rows kernels) on
-    PyTorch's current stream; returns (compat, rows) without
-    synchronizing. Counts its launches in `quant_prep_cuda.launches`, and
-    those of each `__global__` function in
-    `quant_prep_cuda.function_launches`: compat_kernel where P > 0,
-    rows_kernel where H > 0."""
+    """Launch csrc/quant_prep.cu (prep_tile_kernel, a block a tile) on
+    PyTorch's current stream of the inputs' device; returns (compat,
+    rows) without synchronizing. Counts its launches in
+    `quant_prep_cuda.launches` and, by `__global__` function, in
+    `quant_prep_cuda.function_launches`: one a call with any tile. The C
+    side switches device only when the inputs' is not the current one, so
+    no device guard is entered, and the stream is the raw handle
+    (`utils.kernels.stream_handle`)."""
     if not x.goff.is_cuda:
         raise ValueError(f"quant_prep_cuda needs CUDA tensors, got "
                          f"{x.goff.device}")
     _check(x, P)
-    H = x.goff.shape[0]
-    compat = torch.empty(P, dtype=torch.uint8, device=x.goff.device)
-    rows = torch.empty((H, ROW_BYTES), dtype=torch.uint8,
-                       device=x.goff.device)
-    if P == 0 and H == 0:
+    dev = x.goff.device
+    H, NT = x.goff.shape[0], x.tiles.shape[0]
+    # one allocation: compat, then the rows from the next 16-byte boundary
+    rows_at = -(-P // 16) * 16
+    out = torch.empty(rows_at + H * ROW_BYTES, dtype=torch.uint8,
+                      device=dev)
+    compat, rows = out[:P], out[rows_at:].view(H, ROW_BYTES)
+    if NT == 0:
         return compat, rows
-    with torch.cuda.device(x.goff.device):
-        _launch(*[t.data_ptr() for t in x], P, H, x.gcode.shape[0],
-                x.ni.shape[0], x.iso_idx.shape[0], compat.data_ptr(),
-                rows.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _launch(x.gcode.data_ptr(), x.gleft.data_ptr(), x.glen.data_ptr(),
+            x.goff.data_ptr(), x.nf.data_ptr(), x.exl.data_ptr(),
+            x.exr.data_ptr(), x.nex.data_ptr(), x.inl.data_ptr(),
+            x.inn.data_ptr(), x.iso_idx.data_ptr(), x.segl.data_ptr(),
+            x.segr.data_ptr(), x.tiles.data_ptr(), P, x.gcode.shape[0],
+            x.iso_idx.shape[0], NT, compat.data_ptr(), rows.data_ptr(),
+            dev.index, stream_handle(dev.index))
     quant_prep_cuda.launches += 1
-    quant_prep_cuda.function_launches["compat_kernel"] += P > 0
-    quant_prep_cuda.function_launches["rows_kernel"] += H > 0
+    quant_prep_cuda.function_launches["prep_tile_kernel"] += 1
     return compat, rows
 
 
 quant_prep_cuda.launches = 0
-quant_prep_cuda.function_launches = dict.fromkeys(
-    ("compat_kernel", "rows_kernel"), 0)
+quant_prep_cuda.function_launches = {"prep_tile_kernel": 0}
 _launch = Entry("quant_prep", "strawb_quant_prep",
-                [C.c_void_p] * 17 + [C.c_int] * 5 + [C.c_void_p] * 3)
+                [C.c_void_p] * 14 + [C.c_int] * 4 + [C.c_void_p] * 2
+                + [C.c_int, C.c_void_p])
 
 
 def quant_prep(x: PrepInputs, P: int):
-    """The plain version for CPU tensors, the kernels for CUDA tensors."""
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if x.goff.device.type == "cpu":
         return quant_prep_reference(x, P)
     return quant_prep_cuda(x, P)

@@ -4,7 +4,7 @@ strawberry_tpu/quant/device_prep.py.
 The LocusContext observation model splits into an integer half (read vs
 isoform compatibility, exon-segment overlap rows) and a float64 half (bin
 grouping, counts, fragment-length weights). The integer half runs on the
-card in the hand-written kernels of quant/cuda_prep.py
+card in the hand-written kernel of quant/cuda_prep.py
 (csrc/quant_prep.cu); the float64 half stays in the host library
 (strawb_quant_finish_batch), so the EM inputs are bit-identical to the
 all-host path's.
@@ -15,8 +15,9 @@ eligibility rules (F_MAX, E_MAX, S_MAX, L_MAX and the tier-fit split, kept
 so that the device/host split of the loci equals the JAX package's), the
 marshalling and the native finish. What differs:
 
-- The kernels run on the exact pair, hit and feature counts; nothing is
-  padded to the JAX package's static tiers.
+- The kernel runs on the exact pair, hit and feature counts; nothing is
+  padded to the JAX package's static tiers. It takes a tile table too,
+  built here with the other per-call inputs (cuda_prep.prep_tiles).
 - The isoform tables live on the card for the run (`PrepState.tables`).
 - `PrepState` owns a CUDA stream. `build_batch_device` runs on side
   threads (the `pool` and `dev-prep` executors of the pipeline), and the
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from .cuda_prep import (E_MAX, F_MAX, I32MAX, ROW_BYTES, S_MAX, PrepInputs,
-                        quant_prep)
+                        prep_tiles, quant_prep)
 
 L_MAX = 512   # loci per chunk (bigger chunks split)
 
@@ -48,10 +49,12 @@ _P_TIERS = (8192, 65536, 262144, 1048576, 4194304)
 
 _I32MAX = np.int32(I32MAX)
 
-# the kernels' inputs that are marshalled per call (the rest are the
-# isoform tables, which live on the device for the run)
-_PER_CALL = ("gcode", "gleft", "glen", "goff", "nf", "pair_base", "hit_off",
-             "iso_off", "iso_idx", "ni", "segl", "segr")
+# the kernel's inputs that are marshalled per call (the rest are the
+# isoform tables, which live on the device for the run); the tile table
+# first, where the one input buffer is 16-byte aligned, as the kernel
+# reads it
+_PER_CALL = ("tiles", "gcode", "gleft", "glen", "goff", "nf", "pair_base",
+             "hit_off", "iso_off", "iso_idx", "ni", "segl", "segr")
 _TABLES = ("exl", "exr", "nex", "inl", "inn")
 
 
@@ -321,9 +324,10 @@ def build_batch_device(cfg, read_len, insert_dist, specs, state: PrepState,
 def marshal(hit_loc, h_off, h_code, h_left, h_len, d_iso_off, d_iso_idx,
             pair_base, seg_off, seg_l, seg_r, dev_ids) -> dict:
     """The per-call kernel inputs of the device loci as exact-size numpy
-    int32 arrays, keyed as PrepInputs' fields (the isoform tables aside).
-    The feature arrays hold at least one entry (a padded one when the hits
-    have no features), as the kernels' index clamps need."""
+    int32 arrays, keyed as PrepInputs' fields (the isoform tables aside):
+    `kern`'s and the tile table (cuda_prep.prep_tiles). The feature
+    arrays hold at least one entry (a padded one when the hits have no
+    features), as the kernel's index clamps need."""
     nl = len(dev_ids)
     segl = np.full((nl, S_MAX), _I32MAX, np.int32)
     segr = np.full((nl, S_MAX), -1, np.int32)
@@ -335,6 +339,7 @@ def marshal(hit_loc, h_off, h_code, h_left, h_len, d_iso_off, d_iso_idx,
     if len(h_code) == 0:
         gcode, gleft, glen = [0], [I32MAX], [0]
     i32 = np.int32
+    ni = d_iso_off[1:] - d_iso_off[:-1]
     return {"gcode": np.asarray(gcode).astype(i32),
             "gleft": np.asarray(gleft).astype(i32),
             "glen": np.asarray(glen).astype(i32),
@@ -344,15 +349,16 @@ def marshal(hit_loc, h_off, h_code, h_left, h_len, d_iso_off, d_iso_idx,
             "hit_off": hit_loc.astype(i32),
             "iso_off": d_iso_off.astype(i32),
             "iso_idx": d_iso_idx.astype(i32),
-            "ni": (d_iso_off[1:] - d_iso_off[:-1]).astype(i32),
-            "segl": segl, "segr": segr}
+            "ni": ni.astype(i32),
+            "segl": segl, "segr": segr,
+            "tiles": prep_tiles(hit_loc, ni, pair_base, d_iso_off)}
 
 
 def launch(state: PrepState, arrays: dict, P: int):
-    """Run the kernels on the marshalled arrays; returns a function that
+    """Run the kernel on the marshalled arrays; returns a function that
     waits for the results and gives (compat (P,), rows (H, 16)) as numpy
     uint8. On the GPU everything is queued on the state's stream: one copy
-    of all inputs from pinned memory, the kernels, and the copies of both
+    of all inputs from pinned memory, the kernel, and the copies of both
     outputs back into pinned memory."""
     H = len(arrays["goff"])
     if state.device.type == "cpu":

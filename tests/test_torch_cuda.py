@@ -4,7 +4,8 @@ gets (one warp a locus at tiers 0-1, one CTA with F in registers at tier 2,
 a thread block cluster at tier 3), on edge-case buckets and at odd shapes
 on either side of each specialization's limits, with f64 bit-identical
 across runs; quant prep
-(csrc/quant_prep.cu) on seeded synthetic chunks, the min-cost flow
+(csrc/quant_prep.cu, one launch a chunk over locus tiles) on seeded
+synthetic chunks and on chunks at the edges of its design, the min-cost flow
 (csrc/mcf_bucket.cu) on ragged batches that take every size class, and
 the shard-row reduction (csrc/shard_reduce.cu) with the sharded EM bucket
 over it; the wrappers' entries bound once. Needs an NVIDIA GPU and
@@ -24,8 +25,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (flow_problems, infeasible_problem, prep_inputs,
-                        random_bucket, special_bucket, synthetic_prep_chunk)
+from chip_smoke import (edge_prep_chunks, flow_problems, infeasible_problem,
+                        prep_inputs, random_bucket, special_bucket,
+                        synthetic_prep_chunk)
 from strawberry_tpu.assembly.mincostflow import solve_dense
 from strawberry_tpu.quant.em import em_run
 from strawberry_tpu_torch.assembly.cuda_mcf import (
@@ -220,30 +222,63 @@ def test_kernel_rejects_bad_inputs(cuda_device):
                        valid, active)
 
 
+def prep_chunk(name):
+    """A synthetic chunk ("synthetic_<seed>") or one of edge_prep_chunks."""
+    if name.startswith("synthetic_"):
+        return synthetic_prep_chunk(int(name.split("_")[1]))
+    return edge_prep_chunks()[name]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [7, 8, 9])
-def test_prep_kernels_match_plain(seed, cuda_device):
-    arrays, tables, P = synthetic_prep_chunk(seed)
+@pytest.mark.parametrize("name", ["synthetic_7", "synthetic_8", "synthetic_9",
+                                  "long_locus", "200_isoforms",
+                                  "loci_without_hits", "no_pairs"])
+def test_prep_kernels_match_plain(name, cuda_device):
+    """Array-equal to the plain version, identical across two runs, one
+    launch of prep_tile_kernel a call."""
+    arrays, tables, P = prep_chunk(name)
     x = prep_inputs(arrays, tables, cuda_device)
     launches = quant_prep_cuda.launches
+    fn_launches = dict(quant_prep_cuda.function_launches)
     compat, rows = quant_prep_cuda(x, P)
+    compat2, rows2 = quant_prep_cuda(x, P)
     compat_r, rows_r = quant_prep_reference(x, P)
     torch.cuda.synchronize()
-    assert quant_prep_cuda.launches == launches + 1
+    assert quant_prep_cuda.launches == launches + 2
+    assert quant_prep_cuda.function_launches == {
+        "prep_tile_kernel": fn_launches["prep_tile_kernel"] + 2}
     assert torch.equal(compat, compat_r) and torch.equal(rows, rows_r)
-    assert 0 < int(compat.sum()) < P
+    assert torch.equal(compat, compat2) and torch.equal(rows, rows2)
+    if name.startswith("synthetic_"):
+        assert 0 < int(compat.sum()) < P
 
 
 @pytest.mark.cuda
 def test_prep_kernels_reject_bad_inputs(cuda_device):
     arrays, tables, P = synthetic_prep_chunk(7)
     x = prep_inputs(arrays, tables, cuda_device)
+    launches = quant_prep_cuda.launches
     with pytest.raises(ValueError, match="gleft: expected"):
         quant_prep_cuda(x._replace(gleft=x.gleft.long()), P)
     with pytest.raises(ValueError, match="segl: expected"):
         quant_prep_cuda(x._replace(segl=x.segl[:, :64].contiguous()), P)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         quant_prep_cuda(prep_inputs(arrays, tables, "cpu"), P)
+    with pytest.raises(ValueError, match="tiles: expected"):
+        quant_prep_cuda(x._replace(tiles=x.tiles[:, :4].contiguous()), P)
+    with pytest.raises(ValueError, match="tiles must be contiguous"):
+        quant_prep_cuda(x._replace(tiles=x.tiles.t().contiguous().t()), P)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.empty(x.tiles.numel() + 1, dtype=torch.int32,
+                              device=cuda_device)
+        shifted[1:] = x.tiles.view(-1)
+        quant_prep_cuda(x._replace(tiles=shifted[1:].view(x.tiles.shape)),
+                        P)
+    with pytest.raises(ValueError, match="nf is on cpu"):
+        quant_prep_cuda(x._replace(nf=x.nf.cpu()), P)
+    with pytest.raises(ValueError, match="NT=0 tiles"):
+        quant_prep_cuda(x._replace(tiles=x.tiles[:0]), P)
+    assert quant_prep_cuda.launches == launches
 
 
 RAGGED_SIZES = (3, 8, 13, 31, 32, 33, 64, 65, 128, 200, 256)

@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 
-from chip_smoke import prep_inputs, synthetic_prep_chunk
+from chip_smoke import edge_prep_chunks, prep_inputs, synthetic_prep_chunk
 from strawberry_tpu.config import Config as JaxConfig
 from strawberry_tpu.pipeline import run_driver as jax_run_driver
 from strawberry_tpu.quant import device_prep as jax_prep
@@ -28,7 +28,8 @@ from strawberry_tpu.sim import make_dataset
 from strawberry_tpu_torch.config import Config
 from strawberry_tpu_torch.pipeline import run_driver
 from strawberry_tpu_torch.quant import device_prep
-from strawberry_tpu_torch.quant.cuda_prep import (quant_prep,
+from strawberry_tpu_torch.quant.cuda_prep import (TILE_HITS, TILE_PAIRS,
+                                                  prep_tiles, quant_prep,
                                                   quant_prep_reference)
 
 
@@ -112,6 +113,7 @@ def jax_kernel(arrays, tables, P):
             pad(arrays["iso_off"], jax_prep.L_MAX + 1, NI),
             pad(arrays["iso_idx"], max(NI, 8)),
             pad(arrays["ni"], jax_prep.L_MAX, 1), segl, segr]
+    assert len(args) == 17   # `kern`'s own inputs: never the tile table
     compat, rows = jax_prep._kernel_for(Pt)(*[jnp.asarray(a) for a in args])
     return np.asarray(compat)[:P], np.asarray(rows)[:H]
 
@@ -161,6 +163,106 @@ def test_plain_matches_jax_kernel_on_pipeline_chunks(tmp_path, port_run,
     tables = [state.tables[k].numpy() for k in device_prep._TABLES]
     for arrays, P in calls[:2]:
         assert_plain_matches_jax(arrays, tables, P)
+    for arrays, P in calls:
+        assert_tiles_right(arrays, P)
+
+
+def kern_pair_decode(arrays, P):
+    """`kern`'s decode of every pair, in numpy: (locus, hit, isoform slot
+    within the locus), searchsorted over pair_base and clamped as there."""
+    pair_base = arrays["pair_base"].astype(np.int64)
+    hit_off = arrays["hit_off"].astype(np.int64)
+    ni = arrays["ni"].astype(np.int64)
+    p = np.arange(P)
+    L = np.clip(np.searchsorted(pair_base, p, side="right") - 1, 0,
+                len(ni) - 1)
+    off = p - pair_base[L]
+    nL = np.maximum(ni[L], 1)
+    return L, np.clip(hit_off[L] + off // nL, 0, len(arrays["goff"]) - 1), \
+        off % nL
+
+
+def assert_tiles_right(arrays, P):
+    """The chunk's tile table covers each locus's hits exactly once, in
+    order, within the caps, none for a locus with no hits, and its pair
+    runs are the pairs `kern` decodes to those hits, each pair once."""
+    hit_off = arrays["hit_off"].astype(np.int64)
+    ni = arrays["ni"].astype(np.int64)
+    tiles = arrays["tiles"]
+    assert tiles.dtype == np.int32 and tiles.shape[1] == 8
+    np.testing.assert_array_equal(tiles, prep_tiles(
+        hit_off, ni, arrays["pair_base"], arrays["iso_off"]))
+    loc, h0, n, p0, t_ni, t_io = tiles[:, :6].T.astype(np.int64)
+    nh = np.diff(hit_off)
+    assert (tiles[:, 6:] == 0).all() and (n >= 1).all()
+    assert (np.diff(loc) >= 0).all()
+    assert set(loc) == set(np.nonzero(nh)[0])
+    runs = [np.arange(a, a + b) for a, b in zip(h0, n)]
+    np.testing.assert_array_equal(np.concatenate(runs + [[]]),
+                                  np.arange(len(arrays["goff"])))
+    assert (h0 >= hit_off[loc]).all() and (h0 + n <= hit_off[loc + 1]).all()
+    assert (n <= TILE_HITS).all()
+    assert ((n * ni[loc] <= TILE_PAIRS) | (n == 1)).all()
+    np.testing.assert_array_equal(t_ni, ni[loc])
+    np.testing.assert_array_equal(t_io, arrays["iso_off"][loc])
+    np.testing.assert_array_equal(
+        p0, arrays["pair_base"][loc] + (h0 - hit_off[loc]) * ni[loc])
+    L, h, k = kern_pair_decode(arrays, P)
+    seen = np.zeros(P, np.int64)
+    for row in range(len(tiles)):
+        j = np.arange(n[row] * t_ni[row])
+        p = p0[row] + j
+        seen[p] += 1
+        np.testing.assert_array_equal(L[p], loc[row])
+        np.testing.assert_array_equal(h[p], h0[row] + j // max(t_ni[row], 1))
+        np.testing.assert_array_equal(k[p], j % max(t_ni[row], 1))
+    assert (seen == 1).all()
+
+
+def _chunk(name):
+    if name.startswith("synthetic_"):
+        return synthetic_prep_chunk(int(name.split("_")[1]))
+    return edge_prep_chunks()[name]
+
+
+EDGE_CHUNKS = ("long_locus", "200_isoforms", "loci_without_hits", "no_pairs")
+
+
+@pytest.mark.parametrize("name", ("synthetic_7", "synthetic_8",
+                                  "synthetic_9") + EDGE_CHUNKS)
+def test_tiles_cover_hits_and_pairs(name):
+    arrays, _tables, P = _chunk(name)
+    assert_tiles_right(arrays, P)
+
+
+def test_edge_chunks_are_at_the_edges():
+    """What the edge chunks are for: a locus spanning many tiles, one with
+    more isoforms than the kernel stages at once, loci with no hits, and
+    hits with no pairs."""
+    chunks = edge_prep_chunks()
+    arrays, _t, P = chunks["long_locus"]
+    nh, ni = np.diff(arrays["hit_off"]), arrays["ni"]
+    assert (nh * ni).max() >= 30_000 and (arrays["tiles"][:, 0] == 0).sum() > 10
+    arrays, (exl, exr, nex, inl, inn), P = chunks["200_isoforms"]
+    big = int(np.argmax(arrays["ni"]))
+    ids = arrays["iso_idx"][arrays["iso_off"][big]:arrays["iso_off"][big + 1]]
+    assert len(ids) == 200 and (nex[ids] == 64).all() and P > 0
+    arrays, _t, P = chunks["loci_without_hits"]
+    nh = np.diff(arrays["hit_off"])
+    assert nh[0] == 0 and nh[-1] == 0 and (nh == 0).sum() >= 3 and P > 0
+    arrays, _t, P = chunks["no_pairs"]
+    assert P == 0 and len(arrays["goff"]) > 0 and len(arrays["tiles"]) > 0
+
+
+@pytest.mark.parametrize("name", EDGE_CHUNKS)
+def test_plain_matches_jax_kernel_on_edge_chunks(name):
+    arrays, tables, P = _chunk(name)
+    assert_plain_matches_jax(arrays, tables, P)
+
+
+def test_prep_tiles_refuses_a_bad_layout():
+    with pytest.raises(ValueError, match="must not decrease"):
+        prep_tiles([0, 5, 3], [1, 1], [0, 5, 3], [0, 1, 2])
 
 
 def test_prep_state_tables_equal_jax(tmp_path, port_run):
