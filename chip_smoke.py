@@ -56,7 +56,9 @@ Phases:
      dataset_realistic: seed 303, 24 x 16 Mb chromosomes, up to 20
      isoforms) at 1M fragments (~2M reads), generated once under
      build/chip_smoke/: `-g -r` host f64 (the default), `-g -r --fast-em`
-     (every tier-fitting EM on the card), `-g -r` with STRAWB_DEVICE_EM=1,
+     with STRAWB_FASTEM_AFTER=0 (every tier-fitting EM on the card; so
+     are phase 5's and the parallel layer's --fast-em runs), `-g -r` with
+     STRAWB_DEVICE_EM=1,
      `-g -r` with STRAWB_DEVICE_PREP=all and =budget, `-g` (the default),
      `-g` with STRAWB_DEVICE_MCF=1 and the same with STRAWB_FORCE_HOST=1
      (every flow on the host solver), and `-g --fast-em`. Every kernel
@@ -102,6 +104,18 @@ Phases:
      a fresh process (held: every launch in the trace) and in this one
      (recorded with the process's age: torch.profiler drops such kernel
      records in an old process, see utils/profiling.py).
+  6. the routing defaults (strawberry_tpu_torch/routing.py) on the card:
+     its constants and what each default resolves to are printed; each
+     default that sends work to the card runs beside its
+     STRAWB_FORCE_HOST=1 twin (the same GTF body, its kernel launched);
+     phase 4's default runs launched nothing the defaults keep on the
+     host; `-g -r --fast-em` at the default STRAWB_FASTEM_AFTER (no bound:
+     the default's body byte for byte, no launch, every theta the
+     default's); the mixed route, `--fast-em` with STRAWB_FASTEM_AFTER at
+     half the run's problems (the first half's thetas bit-identical to
+     the default's, every tier-fitting problem past it through the f32
+     kernel, TPM p99 relative error <= 1e-3); no STRAWB_DEVICE_MCF=1
+     problem on the card lies below device_min_nodes.
 
 The prep and MCF times come with their bounds too. The line before the
 last is the JSON kernel report; the last line is
@@ -1312,6 +1326,7 @@ def run_cli(name, argv, env, dispatchers=1):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.tier_of = []
+            self.order = []    # the problems' indices, in add() order
             self.buckets = {}  # tier -> the first full batch's arrays
             Recording.made.append(self)
 
@@ -1327,6 +1342,7 @@ def run_cli(name, argv, env, dispatchers=1):
                 fit = [t for t, (rb, cb, _bb) in enumerate(qdev._TIERS)
                        if F.shape[0] <= rb and p.weights.shape[1] <= cb]
                 self.tier_of.append(fit[0] if fit else None)
+                self.order.append(idx)
             super().add(idx, p)
 
     out = os.path.join(WORK, "out", name + ".gtf")
@@ -1367,8 +1383,11 @@ def run_cli(name, argv, env, dispatchers=1):
     d = SimpleNamespace(n_device=0, n_host=0, buckets={})
     for made in Recording.made:
         fit = [0] * len(qdev._TIERS)
-        for t in made.tier_of:
-            if t is not None:
+        # --fast-em keeps its first device_after problems on the host;
+        # a dispatcher on the host route sends nothing to the card
+        skip = made.device_after if made.fast_em else 0
+        for i, t in enumerate(made.tier_of):
+            if t is not None and not made.force_host and i >= skip:
                 fit[t] += 1
         # every dispatcher flushes its own partial buckets
         want += sum(math.ceil(n / qdev._TIERS[t][2])
@@ -1384,7 +1403,8 @@ def run_cli(name, argv, env, dispatchers=1):
         f"{getattr(sample, 'flow_stats', {})}, prep "
         f"{getattr(sample, 'prep_stats', {})}, launches {launches}")
     return SimpleNamespace(out=out, wall=wall, d=d, fit=sum(n_fit),
-                           want=want, sample=sample, launches=launches)
+                           want=want, sample=sample, launches=launches,
+                           dispatchers=list(Recording.made))
 
 
 class CountingMcfCopies:
@@ -1456,6 +1476,11 @@ def profiled_run(name, argv, env=None, dispatchers=1):
         f"(kernels {kern} ms), idle share {1 - busy / (wall * 1e3):.4f}")
     return {**out, "device_busy_ms": busy, "kernel_ms": kern,
             "idle_share": 1 - busy / (wall * 1e3)}
+
+
+# --fast-em on the f32 route from the first problem: by default it keeps
+# every problem on the host (routing.FASTEM_AFTER, phase 6)
+F32 = {"STRAWB_FASTEM_AFTER": "0"}
 
 
 def require_no_launches(run, what):
@@ -1762,7 +1787,7 @@ def parallel_runs(base, host, fast, ref):
         "default's")
 
     shf = run_cli("g_r_shards4_fast_em", base + ["--fast-em", "--shards",
-                                                 "4"], {}, dispatchers=4)
+                                                 "4"], F32, dispatchers=4)
     require(shf.d.n_device == shf.fit and shf.launches["em_bucket"]
             == shf.want > 0 and shf.launches["shard_colsum"] == 2,
             f"--shards 4 --fast-em: {shf.d.n_device} of {shf.fit} on the "
@@ -1860,7 +1885,7 @@ def end_to_end(n_frags, dev):
             "default run must solve every EM on the host")
     require_no_launches(host, "default -g -r")
 
-    fast = run_cli("g_r_fast_em", base + ["--fast-em"], {})
+    fast = run_cli("g_r_fast_em", base + ["--fast-em"], F32)
     fast_launches = fast.launches["em_bucket"]
     require(fast_launches > 0, "--fast-em launched no kernel")
     require(fast.d.n_device == fast.fit,
@@ -1881,7 +1906,7 @@ def end_to_end(n_frags, dev):
     log(f"  --fast-em vs default: {len(ref)} transcripts, TPM rel err "
         f"median {np.median(rel):.3e} p99 {p99:.3e} max {rel.max():.3e}")
     require(p99 <= 1e-3, f"--fast-em TPM p99 rel err {p99} > 1e-3")
-    prof = profiled_run("g_r_fast_em_profiled", base + ["--fast-em"])
+    prof = profiled_run("g_r_fast_em_profiled", base + ["--fast-em"], F32)
 
     dev_em = run_cli("g_r_device_em", base, {"STRAWB_DEVICE_EM": "1"})
     dev_launches = dev_em.launches["em_bucket"]
@@ -1905,7 +1930,7 @@ def end_to_end(n_frags, dev):
     prof_mcf = profiled_run("g_mcf_profiled", ["-g", gtf, "--fr", bam],
                             {"STRAWB_DEVICE_MCF": "1"})
 
-    g = run_cli("g_fast_em", ["-g", gtf, "--fr", "--fast-em", bam], {})
+    g = run_cli("g_fast_em", ["-g", gtf, "--fr", "--fast-em", bam], F32)
     g_launches = g.launches["em_bucket"]
     require(g.d.n_device == g.fit and g_launches == g.want > 0,
             f"-g --fast-em: {g.d.n_device} on the card of {g.fit}, "
@@ -1969,6 +1994,10 @@ def end_to_end(n_frags, dev):
                              preps["budget"].launches["quant_prep"],
                          "mcf_bucket": mcfs["g_mcf"].launches["mcf_bucket"]},
             "mcf_calls": len(mcf_calls),
+            "main_path_mcf_sizes": [p[0].shape[0] for c in mcf_calls
+                                    for p in c],
+            "default_launches": {"g_r_host": host.launches,
+                                 "g_host": g_host.launches},
             "tpm_p99": p99, "device_em_byte_identical": dev_same,
             "mcf_same_as_default": mcfs["mcf_same_as_default"]}
 
@@ -2028,7 +2057,7 @@ def trace_phase(n_frags, e2e):
     bam, gtf = realistic_set(n_frags)
     base = ["-g", gtf, "-r", "--fr", bam]
     modes = (
-        ("g_r_fast_em", base + ["--fast-em"], {}, "profiled_fast_em"),
+        ("g_r_fast_em", base + ["--fast-em"], F32, "profiled_fast_em"),
         ("g_r_prep_all", base, {"STRAWB_DEVICE_PREP": "all"},
          "profiled_prep_all"),
         ("g_mcf", ["-g", gtf, "--fr", bam], {"STRAWB_DEVICE_MCF": "1"},
@@ -2217,6 +2246,156 @@ def after_start_traces():
     return out
 
 
+# --------------------------------------------------------------- phase 6
+def routing_phase(n_frags, e2e):
+    """Phase 6: the routing defaults (strawberry_tpu_torch/routing.py) on
+    the card. Prints the constants and what each default resolves to
+    here. A default that sends work to the card (the f64 EM, the prep
+    auto mode) runs beside its STRAWB_FORCE_HOST=1 twin: the same GTF
+    body, its kernel launched, the twin launching nothing; a default that
+    keeps the work on the host launched nothing in phase 4's default
+    runs. `--fast-em` at the default STRAWB_FASTEM_AFTER gives the
+    default's body and, where the bound is at least the run's problems,
+    launches nothing; the mixed route (a bound at half the problems)
+    keeps its first problems on the host, bit for bit, and sends every
+    tier-fitting one past them to the card. Under STRAWB_DEVICE_MCF=1
+    (phase 4) every problem of at least device_min_nodes went through
+    the kernel."""
+    from strawberry_tpu_torch import routing
+    constants = {k: getattr(routing, k) for k in (
+        "DEVICE_EM", "FASTEM_AFTER", "PREP", "PREP_GRANULE",
+        "MCF_MIN_NODES")}
+    resolved = {"f64_em": "host" if routing.em_force_host(False)
+                else "device",
+                "fast_em": "host" if routing.em_force_host(True)
+                else "device",
+                "fastem_after": routing.fastem_after(),
+                "prep": routing.prep_mode(),
+                "prep_granule": routing.prep_granule(),
+                "mcf_min_nodes": routing.mcf_min_nodes()}
+    log(f"  routing defaults on the card: {constants}; resolved: "
+        f"{resolved}")
+    bam, gtf = realistic_set(n_frags)
+    base = ["-g", gtf, "-r", "--fr", bam]
+    host_body = body(e2e["outs"]["g_r_host"])
+    out = {"constants": constants, "resolved": resolved}
+
+    on_card = {k: kern for k, kern in (("f64_em", "em_bucket"),
+                                        ("prep", "quant_prep"))
+               if resolved[k] not in ("host", "off")}
+    if on_card:
+        dflt = run_cli("routing_default", base, {})
+        twin = run_cli("routing_force_host", base,
+                       {"STRAWB_FORCE_HOST": "1"})
+        require(body(dflt.out) == body(twin.out),
+                f"default -g -r ({on_card} on the card): GTF body differs "
+                "from its STRAWB_FORCE_HOST=1 twin's")
+        require_no_launches(twin, "STRAWB_FORCE_HOST=1")
+        for k, kern in on_card.items():
+            require(dflt.launches[kern] > 0,
+                    f"the default sends {k} to the card; {kern} launched "
+                    "nothing")
+        out["default_vs_force_host"] = {"walls_s": [dflt.wall, twin.wall],
+                                        "launches": dflt.launches}
+    for name, launches in e2e["default_launches"].items():
+        for k, kern in (("f64_em", "em_bucket"), ("prep", "quant_prep")):
+            require(k in on_card or launches[kern] == 0,
+                    f"{name}: {kern} launched where the default is host")
+    log(f"  defaults on the card: {sorted(on_card) or 'none'}; phase 4's "
+        "default runs launched nothing the defaults keep on the host")
+
+    k = resolved["fastem_after"]
+    fk = run_cli("routing_fast_em", base + ["--fast-em"], {})
+    n = fk.d.n_device + fk.d.n_host
+    require(fk.d.n_device == fk.fit and fk.launches["em_bucket"] == fk.want,
+            f"--fast-em at STRAWB_FASTEM_AFTER={k}: {fk.d.n_device} EMs on "
+            f"the card, {fk.fit} fit a tier past the first {k}; "
+            f"{fk.launches['em_bucket']} launches of {fk.want}")
+    same = body(fk.out) == host_body
+    if k is None or n <= k:
+        require(fk.d.n_device == 0 and not any(fk.launches.values())
+                and same, f"--fast-em on {n} problems, bound {k}: "
+                "expected the default's run, got "
+                f"{fk.d.n_device} on the card, {fk.launches}, body equal "
+                f"{same}")
+    log(f"  --fast-em at STRAWB_FASTEM_AFTER={k}: {n} problems, "
+        f"{fk.d.n_device} on the card, GTF body equal to the default's: "
+        f"{same}")
+    out["fast_em_default"] = {"problems": n, "device": fk.d.n_device,
+                              "launches": fk.launches["em_bucket"],
+                              "body_equals_default": same,
+                              "wall_s": fk.wall}
+    out["fast_em_mixed"] = mixed_fast_em(base, fk, e2e["outs"]["g_r_host"])
+
+    # phase 4 held every problem of the STRAWB_DEVICE_MCF=1 run to the
+    # kernel; none may lie below device_min_nodes
+    sizes = e2e["main_path_mcf_sizes"]
+    low = sum(m < resolved["mcf_min_nodes"] for m in sizes)
+    require(sizes and low == 0,
+            f"STRAWB_DEVICE_MCF=1: {low} of {len(sizes)} problems on the "
+            f"card below device_min_nodes {resolved['mcf_min_nodes']}")
+    out["mcf"] = {"device_problems": len(sizes), "min_nodes_seen": min(sizes)}
+    return out
+
+
+def same_bits(a, b):
+    """Two thetas (or None) bit for bit."""
+    import numpy as np
+    if a is None or b is None:
+        return a is None and b is None
+    a = np.ascontiguousarray(a, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint64),
+                                                 b.view(np.uint64))
+
+
+def mixed_fast_em(base, host_run, host_gtf):
+    """`--fast-em` with STRAWB_FASTEM_AFTER at half the problems of
+    `host_run` (a --fast-em run that solved every problem on the host):
+    the first half solve on the host, bit for bit as `host_run` did them,
+    and every tier-fitting problem past it through the f32 kernel; the
+    TPMs within --fast-em's tolerance of the default's."""
+    import numpy as np
+    (ref,) = host_run.dispatchers
+    require(not ref.n_device and ref.order,
+            "the mixed route needs a --fast-em run on the host to compare")
+    k = len(ref.order) // 2
+    mx = run_cli("routing_fast_em_mixed", base + ["--fast-em"],
+                 {"STRAWB_FASTEM_AFTER": str(k)})
+    (d,) = mx.dispatchers
+    launches = mx.launches["em_bucket"]
+    require(d.order == ref.order, "the mixed run queued other problems")
+    require(mx.d.n_device == mx.fit > 0 and launches == mx.want > 0,
+            f"mixed --fast-em (bound {k}): {mx.d.n_device} EMs on the card "
+            f"of {mx.fit} tier-fitting past the bound, {launches} launches "
+            f"of {mx.want}")
+    require(mx.d.n_host == k + sum(t is None for t in d.tier_of[k:]),
+            f"mixed --fast-em: {mx.d.n_host} on the host, expected the "
+            f"first {k} and the rest that fit no tier")
+    host_part = [i for pos, i in enumerate(d.order)
+                 if pos < k or d.tier_of[pos] is None]
+    differ = sum(not same_bits(d.results[i], ref.results[i])
+                 for i in host_part)
+    require(differ == 0, f"mixed --fast-em: {differ} of {len(host_part)} "
+            "problems kept on the host differ from the default's thetas")
+    ref_tpm, got = tpms(host_gtf), tpms(mx.out)
+    require(set(got) == set(ref_tpm),
+            "mixed --fast-em: transcript set differs from the default's")
+    a = np.array([ref_tpm[t] for t in sorted(ref_tpm)])
+    b = np.array([got[t] for t in sorted(ref_tpm)])
+    require(np.isfinite(b).all(), "mixed --fast-em: TPM not finite")
+    p99 = float(np.percentile(np.abs(a - b) / np.maximum(np.abs(a), 1e-12),
+                              99))
+    require(p99 <= 1e-3, f"mixed --fast-em TPM p99 rel err {p99} > 1e-3")
+    log(f"  mixed --fast-em, STRAWB_FASTEM_AFTER={k}: {mx.d.n_host} on the "
+        f"host ({len(host_part)} bit-identical to the default's), "
+        f"{mx.d.n_device} on the card in {launches} launches, TPM p99 rel "
+        f"err {p99:.3e}")
+    return {"bound": k, "host": mx.d.n_host, "device": mx.d.n_device,
+            "launches": launches, "host_thetas_bit_identical":
+            len(host_part), "tpm_p99": p99, "wall_s": mx.wall}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-frags", type=int, default=1_000_000)
@@ -2296,6 +2475,10 @@ def main():
     log("phase 5: the STRAWB_TRACE_DIR trace against the launch counts")
     traced = trace_phase(args.n_frags, e2e)
     log("  trace: " + json.dumps(traced))
+
+    log("phase 6: the routing defaults on the card")
+    routes = routing_phase(args.n_frags, e2e)
+    log("  routing: " + json.dumps(routes))
 
     src = "strawberry_tpu_torch/csrc/em_bucket.cu"
     replaces = {"f32": "strawberry_tpu/quant/pallas_em.py:34",

@@ -144,10 +144,13 @@ def test_em_dispatcher_routing_counts(cpu_platform):
     assert d0.n_host == n_fit and d0.n_device == 0 and d0.device is None
 
     # forced device mode and --fast-em: everything that fits the menu
-    # goes to the device tiers (STRAWB_FASTEM_AFTER defaults to 0)
+    # goes to the device tiers (--fast-em with STRAWB_FASTEM_AFTER=0: by
+    # default it keeps every problem on the host, routing.FASTEM_AFTER)
     for env, fast in [("STRAWB_DEVICE_EM", False), (None, True)]:
         if env:
             cpu_platform.setenv(env, "1")
+        else:
+            cpu_platform.setenv("STRAWB_FASTEM_AFTER", "0")
         d = EmDispatcher(fast_em=fast)
         assert d.dtype == (torch.float32 if fast else torch.float64)
         for i, p in enumerate(problems):
@@ -210,6 +213,9 @@ def test_cuda_platform_without_gpu_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the device is found, nothing raises")
     monkeypatch.delenv("STRAWB_FORCE_HOST", raising=False)
+    # --fast-em on the device from the first problem (by default it keeps
+    # every problem on the host and asks for no device)
+    monkeypatch.setenv("STRAWB_FASTEM_AFTER", "0")
     monkeypatch.setenv("STRAWB_PLATFORM", "cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EmDispatcher(fast_em=True)

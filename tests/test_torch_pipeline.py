@@ -1,10 +1,11 @@
 """The port's CLI (python -m strawberry_tpu_torch.cli) against the JAX
 package's on small simulated sets, in subprocesses: byte-identical GTF
-bodies and -T logs in the default modes, --fast-em (the plain f32 EM on
-the CPU) within a TPM tolerance, and runs with jax and the JAX package
-blocked from import, among them one through the device prep and flow
-routes, and the STRAWB_TRACE_DIR trace of the port (a torch.profiler
-Chrome trace). The two packages are independent copies: the port's subprocesses
+bodies and -T logs in the default modes and in --fast-em runs at both
+packages' defaults (small runs stay on the host), --fast-em on the f32
+route (the plain f32 EM on the CPU) within a TPM tolerance, and runs
+with jax and the JAX package blocked from import, among them one through
+the device prep and flow routes, and the STRAWB_TRACE_DIR trace of the
+port (a torch.profiler Chrome trace). The two packages are independent copies: the port's subprocesses
 block both jax and strawberry_tpu throughout (this process imports them),
 and report every shared library they mapped, so a test can show that the
 port loads only the host library built from its own native/ sources."""
@@ -32,12 +33,16 @@ MODES = {"g": ["-g", "{gtf}"], "g_r": ["-g", "{gtf}", "-r"], "abinitio": []}
 
 # Runs every argv of the list through <package>.cli.main in one process and
 # prints the exit codes, each run's flow-solve and prep counts (none for a
-# -p run, whose work is in its workers), whether jax
+# -p run, whose work is in its workers) and EM counts, whether jax
 # or the JAX package was imported, and the shared libraries the process
 # mapped, as JSON. BLOCK_JAX=1 makes `import jax` and `import
 # strawberry_tpu` fail.
 _RUNNER = """
 import json, os, sys
+# bind numpy's lazily imported ctypeslib before either package starts its
+# threads: run_driver's GTF-parse thread and its BAM open can touch
+# np.ctypeslib first at once, and numpy's module __getattr__ then recurses
+import numpy.ctypeslib
 if os.environ.get("BLOCK_JAX"):
     sys.modules["jax"] = None
     sys.modules["strawberry_tpu"] = None
@@ -50,6 +55,7 @@ rcs = [cli.main(argv) for argv in json.loads(sys.argv[2])]
 with open("/proc/self/maps") as f:
     libs = sorted({l.split()[-1] for l in f if l.rstrip().endswith(".so")})
 print(json.dumps({"rcs": rcs, "jax": sys.modules.get("jax") is not None,
+                  "em_stats": [getattr(s, "em_stats", {}) for s in samples],
                   "jax_package": any(
                       m.split(".")[0] == "strawberry_tpu"
                       and sys.modules[m] is not None for m in sys.modules),
@@ -102,6 +108,7 @@ def runs(tmp_path_factory):
     paths keyed by (package, dataset, mode)."""
     root = tmp_path_factory.mktemp("torch_cli")
     argvs = {"strawberry_tpu": [], "strawberry_tpu_torch": []}
+    fast_default = []   # the port's, in a process of their own
     paths = {}
     for ds, (kw, strand) in DATASETS.items():
         bam, gtf, _ = make_dataset(str(root / ds), n_frags=3000, **kw)
@@ -113,16 +120,28 @@ def runs(tmp_path_factory):
                     + [strand, "-o", stem + ".gtf", "-T", stem + ".log",
                        bam])
                 paths[(pkg, ds, mode)] = stem
-        # the port's --fast-em next to the JAX default (mode g_r above)
+        # the port's --fast-em on the f32 route (STRAWB_FASTEM_AFTER=0
+        # below) next to the JAX default (mode g_r above)
         stem = str(root / f"fast_{ds}")
         argvs["strawberry_tpu_torch"].append(
             ["-g", gtf, "-r", "--fast-em", strand, "-o", stem + ".gtf",
              "-T", stem + ".log", bam])
         paths[("fast", ds)] = stem
+        # both CLIs' --fast-em at their own STRAWB_FASTEM_AFTER defaults
+        for pkg in argvs:
+            stem = str(root / f"{pkg}_{ds}_fast_default")
+            argv = ["-g", gtf, "-r", "--fast-em", strand, "-o",
+                    stem + ".gtf", "-T", stem + ".log", bam]
+            (fast_default if pkg == "strawberry_tpu_torch"
+             else argvs[pkg]).append(argv)
+            paths[(pkg, ds, "fast_default")] = stem
     run_cli("strawberry_tpu", argvs["strawberry_tpu"])
     res = run_cli("strawberry_tpu_torch", argvs["strawberry_tpu_torch"],
-                  block_jax=True)
+                  block_jax=True, STRAWB_FASTEM_AFTER="0")
     assert res["jax"] is False
+    res = run_cli("strawberry_tpu_torch", fast_default, block_jax=True)
+    for ds, em in zip(DATASETS, res["em_stats"]):
+        paths[("fast_default_em_stats", ds)] = em
     return paths
 
 
@@ -159,6 +178,25 @@ def test_port_fast_em_close_to_jax_default(runs, ds):
     # the 1e-2 convergence limit
     assert np.median(rel) < 1e-4
     assert np.percentile(rel, 99) <= 1e-2
+
+
+@pytest.mark.parametrize("ds", sorted(DATASETS))
+def test_port_small_fast_em_run_is_jax_cli_fast_em_run(runs, ds):
+    """--fast-em at both packages' defaults on a set of fewer loci than
+    either keeps on the host (the port: every one, routing.FASTEM_AFTER,
+    measured on the H100; the JAX package: 4000): every EM on the host,
+    so the port gives the JAX CLI's --fast-em GTF body and -T log byte
+    for byte, and both give the default's body."""
+    from strawberry_tpu_torch import routing
+    assert routing.FASTEM_AFTER is None
+    em = runs[("fast_default_em_stats", ds)]
+    assert em["device"] == 0 and 0 < em["host"] < 4000
+    jax_out = runs[("strawberry_tpu", ds, "fast_default")]
+    port_out = runs[("strawberry_tpu_torch", ds, "fast_default")]
+    assert body(port_out + ".gtf") == body(jax_out + ".gtf")
+    assert read(port_out + ".log") == read(jax_out + ".log")
+    assert body(port_out + ".gtf") == body(
+        runs[("strawberry_tpu", ds, "g_r")] + ".gtf")
 
 
 def test_port_cli_runs_with_jax_blocked(tmp_path):

@@ -1,5 +1,5 @@
-"""The port stands on its own: no module of strawberry_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package (strawberry_tpu),
+"""The port stands on its own: no module of strawberry_tpu_torch (its
+routing tools in tools/ too), and not chip_smoke.py, imports jax or anything of the JAX package (strawberry_tpu),
 read statically with `ast` (the subprocess runs of test_torch_pipeline.py
 show the same at run time). Also the port's host library: built from its
 own native/ sources into build/strawberry_tpu_torch/, named by a hash of
@@ -45,6 +45,17 @@ def forbidden_imports(path):
 @pytest.mark.parametrize("rel", _sources())
 def test_no_jax_or_jax_package_import(rel):
     assert forbidden_imports(os.path.join(ROOT, rel)) == []
+
+
+def test_scan_covers_the_tools():
+    """The routing tools (strawberry_tpu_torch/tools/) are scanned too."""
+    tools = os.path.join(PORT, "tools")
+    names = sorted(f for f in os.listdir(tools) if f.endswith(".py"))
+    assert {"em_crossover.py", "mcf_crossover.py", "prep_crossover.py",
+            "device_character.py"} <= set(names)
+    scanned = set(_sources())
+    for f in names:
+        assert os.path.relpath(os.path.join(tools, f), ROOT) in scanned, f
 
 
 def test_the_check_finds_forbidden_imports(tmp_path):
