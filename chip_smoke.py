@@ -2,7 +2,7 @@
 """Chip smoke for strawberry_tpu_torch: drives the port's main paths once on
 one NVIDIA GPU and fails unless every phase holds.
 
-    python3 chip_smoke.py [--n-frags N]
+    python3 chip_smoke.py [--n-frags N] [--big-frags M]
 
 Phases:
   1. the card's name and power limit (nvidia-smi); CUDA must be available.
@@ -116,6 +116,25 @@ Phases:
      the default's, every tier-fitting problem past it through the f32
      kernel, TPM p99 relative error <= 1e-3); no STRAWB_DEVICE_MCF=1
      problem on the card lies below device_min_nodes.
+  7. end to end on the same shape at bench.py's full size, 5M fragments
+     (~10M reads; --big-frags), generated once under
+     build/strawberry_tpu_torch/crossover/ (where tools/realistic.py
+     looks for it) by a process of its own that starts after phase 1 and
+     runs beside phases 2-6 on the host's other cores (so phases 2-6's
+     host-paced times are taken with it running): `-g -r` (the default),
+     with STRAWB_DEVICE_EM=1 (the default's body byte for byte),
+     `--fast-em` at the default bound (its route's launches; the
+     default's body where nothing went to the card, else TPM p99 <=
+     1e-3) and with STRAWB_FASTEM_AFTER=0 (TPM p99 <= 1e-3), with
+     STRAWB_DEVICE_PREP=all (the default's body byte for byte), and `-g`
+     with STRAWB_DEVICE_MCF=1 against its STRAWB_FORCE_HOST=1 twin (byte
+     for byte). The EM tier counts and MCF size classes are printed on a
+     line of their own, with the tiers and classes the 1M run left empty;
+     then the kernels against their plain versions on what this run
+     made, timed with their bounds: the first bucket of each EM tier, the
+     first prep chunk of 100 loci (every chunk array-equal), every MCF
+     problem in one call, the largest call, and each size class above the
+     warp class.
 
 The prep and MCF times come with their bounds too. The line before the
 last is the JSON kernel report; the last line is
@@ -1238,36 +1257,48 @@ def check_sharded_em(dev):
 
 
 # ---------------------------------------------------------------- phase 4
+def realistic_paths(n_frags):
+    """The realistic set's directory, BAM and GTF at `n_frags` fragments
+    (tools/common.py: bench.py's dataset_realistic shape)."""
+    from strawberry_tpu_torch.tools import common
+    d = common.realistic_dir(n_frags)
+    return (d, *common.set_paths(d))
+
+
 def realistic_set(n_frags):
     from strawberry_tpu_torch.sim import make_dataset
-    d = os.path.join(WORK, f"realistic_{n_frags}")
-    bam = os.path.join(d, "sample_01.sorted.bam")
-    gtf = os.path.join(d, "annotation.gtf")
+    from strawberry_tpu_torch.tools.common import REALISTIC
+    d, bam, gtf = realistic_paths(n_frags)
     if not (os.path.exists(bam) and os.path.exists(gtf)):
         t0 = time.perf_counter()
-        make_dataset(d, seed=303, n_frags=n_frags, n_chroms=24,
-                     chrom_len=16_000_000, max_isoforms=20,
-                     exon_range=(2, 9), abundance="lognormal",
-                     protocol="fr", indel_rate=0.02, clip_rate=0.03)
+        make_dataset(d, n_frags=n_frags, **REALISTIC)
         log(f"  generated {n_frags} fragments in "
             f"{time.perf_counter() - t0:.1f} s")
     return bam, gtf
 
 
 def tpms(path):
-    out = {}
-    with open(path) as f:
-        for line in f:
-            if not line.startswith("#") and "\ttranscript\t" in line:
-                attrs = line.rsplit("\t", 1)[-1]
-                tid = attrs.split('transcript_id "')[1].split('"')[0]
-                out[tid] = float(attrs.split('TPM "')[1].split('"')[0])
-    return out
+    from strawberry_tpu_torch.tools.common import tpms
+    return tpms(path)
 
 
 def body(path):
     with open(path) as f:
         return "".join(line for line in f if not line.startswith("#"))
+
+
+def tpm_p99(ref_gtf, gtf, what):
+    """The --fast-em rule against the default's GTF (tools/common.py
+    tpm_check): the same transcript set, finite TPMs, TPM p99 relative
+    error <= 1e-3. Returns the p99."""
+    from strawberry_tpu_torch.tools.common import TPM_P99_MAX, tpm_check
+    c = tpm_check(ref_gtf, gtf)
+    require(c["same_transcripts"],
+            f"{what}: transcript set differs from the default's")
+    require(c["finite"], f"{what}: TPM not finite")
+    require(c["ok"], f"{what}: TPM p99 rel err {c['tpm_p99_rel_err']} > "
+            f"{TPM_P99_MAX}")
+    return c["tpm_p99_rel_err"]
 
 
 KERNELS = ("em_bucket", "quant_prep", "mcf_bucket", "shard_reduce")
@@ -1313,9 +1344,10 @@ def run_cli(name, argv, env, dispatchers=1):
     before it and read just after it. Returns the GTF path, the wall, the
     EM dispatch (device and host counts summed over the run's
     `dispatchers` EM dispatchers, one a shard under --shards; the first
-    full bucket of each tier) with its tier-fitting count and expected
-    launches, the Sample (None under --shards, which has one a shard), and
-    the run's launch counts."""
+    bucket of each tier, a full one where the tier filled one) with its
+    tier-fitting count (in all and by tier) and expected launches, the
+    Sample (None under --shards, which has one a shard), and the run's
+    launch counts."""
     from types import SimpleNamespace
     from strawberry_tpu_torch import cli
     from strawberry_tpu_torch.quant import device as qdev
@@ -1327,12 +1359,13 @@ def run_cli(name, argv, env, dispatchers=1):
             super().__init__(*a, **k)
             self.tier_of = []
             self.order = []    # the problems' indices, in add() order
-            self.buckets = {}  # tier -> the first full batch's arrays
+            self.buckets = {}  # tier -> its first batch's arrays
             Recording.made.append(self)
 
         def _launch(self, tier):
-            if (tier not in self.buckets
-                    and len(self._fills[tier]) == qdev._TIERS[tier][2]):
+            # a tier's first launch is a full bucket where the tier ever
+            # fills one (the partial ones are flushed at finish())
+            if tier not in self.buckets and self._fills[tier]:
                 self.buckets[tier] = qdev.pad_bucket(tier, self._fills[tier])
             super()._launch(tier)
 
@@ -1403,7 +1436,8 @@ def run_cli(name, argv, env, dispatchers=1):
         f"{getattr(sample, 'flow_stats', {})}, prep "
         f"{getattr(sample, 'prep_stats', {})}, launches {launches}")
     return SimpleNamespace(out=out, wall=wall, d=d, fit=sum(n_fit),
-                           want=want, sample=sample, launches=launches,
+                           tiers=n_fit, want=want, sample=sample,
+                           launches=launches,
                            dispatchers=list(Recording.made))
 
 
@@ -1489,11 +1523,11 @@ def require_no_launches(run, what):
             f"card: {run.launches}")
 
 
-def prep_runs(base, host):
-    """`-g -r` under STRAWB_DEVICE_PREP=all and =budget: the default's GTF
-    body byte for byte, device loci and prep launches in each. Returns
-    ({mode: Run}, every chunk of the "all" run as (arrays, P), the
-    isoform tables)."""
+def prep_runs(base, host, modes=("all", "budget"), prefix=""):
+    """`-g -r` under STRAWB_DEVICE_PREP=<mode> for each of `modes` (runs
+    named with `prefix`): the default's GTF body byte for byte, device
+    loci and prep launches in each. Returns ({mode: Run}, every chunk of
+    the "all" run as (arrays, P), the isoform tables)."""
     import copy
     from strawberry_tpu_torch.quant import device_prep
     chunks, tables = [], []
@@ -1510,9 +1544,9 @@ def prep_runs(base, host):
     runs = {}
     device_prep.launch = recording_launch
     try:
-        for mode in ("all", "budget"):
+        for mode in modes:
             recording = mode == "all"
-            runs[mode] = r = run_cli(f"g_r_prep_{mode}", base,
+            runs[mode] = r = run_cli(f"{prefix}g_r_prep_{mode}", base,
                                      {"STRAWB_DEVICE_PREP": mode})
             stats = r.sample.prep_stats
             require(body(r.out) == body(host.out),
@@ -1554,6 +1588,19 @@ def chunk_shapes(chunks):
                                    "max_features"))}
 
 
+def main_path_prep(dev, chunks, tables, what):
+    """The prep kernel on the chunks a STRAWB_DEVICE_PREP=all run made:
+    the first of at least 100 device loci (a full 128-locus flush less
+    its host-routed loci) timed with its bound, and every chunk
+    array-equal to the plain version."""
+    chunk = next((c for c in chunks if len(c[0]["ni"]) >= 100), None)
+    require(chunk, f"{what}: STRAWB_DEVICE_PREP=all made no chunk of 100 "
+            "loci")
+    out = compare_prep(dev, chunk[0], tables, chunk[1], what)
+    out["all_chunks"] = check_prep_chunks(dev, chunks, tables)
+    return out
+
+
 def check_prep_chunks(dev, chunks, tables):
     """The prep kernel against its plain version on every chunk of a run,
     array-equal (the wrapper's launches here are not the run's)."""
@@ -1575,12 +1622,13 @@ def check_prep_chunks(dev, chunks, tables):
     return {"chunks": len(chunks), "shapes": shapes}
 
 
-def mcf_runs(gtf, bam, g_host):
+def mcf_runs(gtf, bam, g_host, prefix=""):
     """`-g` under STRAWB_DEVICE_MCF=1, against the same run with
     STRAWB_FORCE_HOST=1 added (every flow on mincostflow.solve_dense): the
-    same GTF body, device problems and MCF launches. Returns ({name: Run},
-    the problems of each call the MCF run packed, as [(cost, has_arc,
-    lower)] lists)."""
+    same GTF body, device problems and MCF launches. Returns ({name: Run}, the problems of each
+    call the MCF run packed, as [(cost, has_arc, lower)] lists); the runs'
+    names start with `prefix`, and their body is compared with the default
+    `g_host` run's where one is given."""
     import numpy as np
     from strawberry_tpu_torch.assembly import device as adev
     calls = []
@@ -1593,11 +1641,11 @@ def mcf_runs(gtf, bam, g_host):
     argv = ["-g", gtf, "--fr", bam]
     adev.pack_problems = recording_pack
     try:
-        mcf = run_cli("g_mcf", argv, {"STRAWB_DEVICE_MCF": "1"})
+        mcf = run_cli(prefix + "g_mcf", argv, {"STRAWB_DEVICE_MCF": "1"})
     finally:
         adev.pack_problems = pack
-    host = run_cli("g_mcf_force_host", argv, {"STRAWB_DEVICE_MCF": "1",
-                                             "STRAWB_FORCE_HOST": "1"})
+    host = run_cli(prefix + "g_mcf_force_host", argv,
+                   {"STRAWB_DEVICE_MCF": "1", "STRAWB_FORCE_HOST": "1"})
     fs = mcf.sample.flow_stats
     require(fs.get("device", 0) > 0 and fs.get("host", 1) == 0
             and mcf.launches["mcf_bucket"] > 0,
@@ -1610,7 +1658,7 @@ def mcf_runs(gtf, bam, g_host):
     require_no_launches(host, "STRAWB_DEVICE_MCF=1 STRAWB_FORCE_HOST=1")
     require(body(mcf.out) == body(host.out),
             "STRAWB_DEVICE_MCF=1: GTF body differs from the host solver's")
-    same = body(mcf.out) == body(g_host.out)
+    same = g_host and body(mcf.out) == body(g_host.out)
     sizes = np.array([p[0].shape[0] for c in calls for p in c])
     log(f"  STRAWB_DEVICE_MCF=1: GTF body byte-identical to the host "
         f"solver's; to the default (lemon NetworkSimplex) run's: {same}; "
@@ -1951,15 +1999,8 @@ def end_to_end(n_frags, dev):
             compare_bucket(dev, b, f"main-path tier {t}")
             for t, b in sorted(fast.d.buckets.items())}
     require(real, "--fast-em filled no tier bucket")
-    # the first chunk of at least 100 device loci (a full 128-locus flush
-    # less its host-routed loci)
-    main_chunk = next((c for c in prep_chunks if len(c[0]["ni"]) >= 100),
-                      None)
-    require(main_chunk, "STRAWB_DEVICE_PREP=all made no chunk of 100 loci")
-    real_prep = compare_prep(dev, main_chunk[0], prep_tables, main_chunk[1],
-                             "main-path prep chunk")
-    real_prep["all_chunks"] = check_prep_chunks(dev, prep_chunks,
-                                                prep_tables)
+    real_prep = main_path_prep(dev, prep_chunks, prep_tables,
+                               "main-path prep chunk")
     real_mcf = main_path_mcf(dev, mcf_calls)
     real_rows = {("2 processes " if k == "dist" else "--shards 4 ")
                  + "x".join(map(str, r.shape)):
@@ -1998,6 +2039,7 @@ def end_to_end(n_frags, dev):
                                     for p in c],
             "default_launches": {"g_r_host": host.launches,
                                  "g_host": g_host.launches},
+            "tier_counts": fast.tiers,
             "tpm_p99": p99, "device_em_byte_identical": dev_same,
             "mcf_same_as_default": mcfs["mcf_same_as_default"]}
 
@@ -2355,7 +2397,6 @@ def mixed_fast_em(base, host_run, host_gtf):
     the first half solve on the host, bit for bit as `host_run` did them,
     and every tier-fitting problem past it through the f32 kernel; the
     TPMs within --fast-em's tolerance of the default's."""
-    import numpy as np
     (ref,) = host_run.dispatchers
     require(not ref.n_device and ref.order,
             "the mixed route needs a --fast-em run on the host to compare")
@@ -2378,15 +2419,7 @@ def mixed_fast_em(base, host_run, host_gtf):
                  for i in host_part)
     require(differ == 0, f"mixed --fast-em: {differ} of {len(host_part)} "
             "problems kept on the host differ from the default's thetas")
-    ref_tpm, got = tpms(host_gtf), tpms(mx.out)
-    require(set(got) == set(ref_tpm),
-            "mixed --fast-em: transcript set differs from the default's")
-    a = np.array([ref_tpm[t] for t in sorted(ref_tpm)])
-    b = np.array([got[t] for t in sorted(ref_tpm)])
-    require(np.isfinite(b).all(), "mixed --fast-em: TPM not finite")
-    p99 = float(np.percentile(np.abs(a - b) / np.maximum(np.abs(a), 1e-12),
-                              99))
-    require(p99 <= 1e-3, f"mixed --fast-em TPM p99 rel err {p99} > 1e-3")
+    p99 = tpm_p99(host_gtf, mx.out, "mixed --fast-em")
     log(f"  mixed --fast-em, STRAWB_FASTEM_AFTER={k}: {mx.d.n_host} on the "
         f"host ({len(host_part)} bit-identical to the default's), "
         f"{mx.d.n_device} on the card in {launches} launches, TPM p99 rel "
@@ -2396,9 +2429,172 @@ def mixed_fast_em(base, host_run, host_gtf):
             len(host_part), "tpm_p99": p99, "wall_s": mx.wall}
 
 
+# --------------------------------------------------------------- phase 7
+# bench.py's primary realistic set at its full size (dataset_realistic)
+BIG_FRAGS = 5_000_000
+
+
+def start_big_set(n_frags):
+    """Starts generating the realistic set at `n_frags` fragments in a
+    process of its own (into a temporary directory, renamed when done), so
+    that it runs beside phases 2-6; none when the set is already there.
+    Returns the process (or None) and its log's path."""
+    d, bam, gtf = realistic_paths(n_frags)
+    logf = os.path.join(WORK, f"generate_{n_frags}.log")
+    if os.path.exists(bam) and os.path.exists(gtf):
+        return None, logf
+    os.makedirs(WORK, exist_ok=True)
+    shutil.rmtree(d + ".partial", ignore_errors=True)
+    code = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
+            "from strawberry_tpu_torch.sim import make_dataset; "
+            "from strawberry_tpu_torch.tools.common import REALISTIC; "
+            "t0 = time.perf_counter(); "
+            f"make_dataset(sys.argv[2], n_frags={n_frags}, **REALISTIC); "
+            "print(f'{time.perf_counter() - t0:.1f} s')")
+    with open(logf, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, ROOT,
+                                 d + ".partial"], cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, logf
+
+
+def finish_big_set(n_frags, gen):
+    """Waits for start_big_set's process and moves its set in place."""
+    d, bam, gtf = realistic_paths(n_frags)
+    proc, logf = gen
+    if proc is not None:
+        t0 = time.perf_counter()
+        rc = proc.wait()
+        with open(logf) as f:
+            text = f.read()
+        require(rc == 0, f"generating {n_frags} fragments: exit code {rc}:\n"
+                + text[-3000:])
+        shutil.rmtree(d, ignore_errors=True)
+        os.rename(d + ".partial", d)
+        log(f"  generated {n_frags} fragments in {text.strip()} beside "
+            f"phases 2-6 (waited {time.perf_counter() - t0:.1f} s here)")
+    require(os.path.exists(bam) and os.path.exists(gtf),
+            f"no realistic set of {n_frags} fragments")
+    return bam, gtf
+
+
+def big_phase(n_frags, dev, gen, e2e):
+    """Phase 7: the main path on bench.py's realistic set at its full size
+    (5M fragments), each run against its host twin: `-g -r` (the default),
+    `-g -r` with STRAWB_DEVICE_EM=1 (the default's body byte for byte,
+    every tier-fitting problem through the kernel), `-g -r --fast-em` at
+    the default bound (routing.FASTEM_AFTER: its route's launches, and the
+    default's body where it sent nothing to the card, else TPM p99 <=
+    1e-3), `--fast-em` with STRAWB_FASTEM_AFTER=0 (every tier-fitting
+    problem in f32; TPM p99 <= 1e-3), `-g -r` with STRAWB_DEVICE_PREP=all
+    (the default's body byte for byte), and `-g` with STRAWB_DEVICE_MCF=1
+    against its STRAWB_FORCE_HOST=1 twin (byte for byte). Prints the EM
+    tier counts and the MCF size classes on a line of their own. Then the
+    kernels on what this run made: the first bucket of every EM tier the
+    run filled (f64 and f32, as phase 3), the first prep chunk of 100
+    loci (and every chunk, array-equal), and every MCF problem in one
+    call, the largest call, and the problems of each size class above
+    the warp class (as phase 3c), each against its plain version and timed
+    with its bound. A tier or class the 1M run of phase 4 left empty is
+    named as reached for the first time."""
+    bam, gtf = finish_big_set(n_frags, gen)
+    tag = "%gM" % (n_frags / 1e6)
+    base = ["-g", gtf, "-r", "--fr", bam]
+    host = run_cli("big_g_r_host", base, {})
+    require(host.d.n_device == 0 and host.d.n_host > 0,
+            f"{tag} default run must solve every EM on the host")
+    require_no_launches(host, f"{tag} default -g -r")
+
+    dev_em = run_cli("big_g_r_device_em", base, {"STRAWB_DEVICE_EM": "1"})
+    n = dev_em.launches["em_bucket"]
+    require(dev_em.d.n_device == dev_em.fit and n == dev_em.want > 0,
+            f"{tag} STRAWB_DEVICE_EM=1: {dev_em.d.n_device} on the card of "
+            f"{dev_em.fit}, {n} launches of {dev_em.want}")
+    require(dev_em.sample.em_stats["tiers"] == dev_em.tiers,
+            f"{tag} STRAWB_DEVICE_EM=1: the dispatcher's tier counts "
+            f"{dev_em.sample.em_stats['tiers']}, recorded {dev_em.tiers}")
+    require(body(dev_em.out) == body(host.out),
+            f"{tag} STRAWB_DEVICE_EM=1: GTF body differs from the default's")
+    log(f"  {tag} STRAWB_DEVICE_EM=1: GTF body byte-identical to the "
+        "default's")
+
+    fk = run_cli("big_g_r_fast_em", base + ["--fast-em"], {})
+    require(fk.d.n_device == fk.fit
+            and fk.launches["em_bucket"] == fk.want,
+            f"{tag} --fast-em at the default bound: {fk.d.n_device} on the "
+            f"card of {fk.fit}, {fk.launches['em_bucket']} launches of "
+            f"{fk.want}")
+    if fk.d.n_device == 0:
+        require(body(fk.out) == body(host.out),
+                f"{tag} --fast-em on the host route: GTF body differs from "
+                "the default's")
+        fk_p99 = 0.0
+    else:
+        fk_p99 = tpm_p99(host.out, fk.out, f"{tag} --fast-em at the default")
+    f32 = run_cli("big_g_r_fast_em_f32", base + ["--fast-em"], F32)
+    require(f32.d.n_device == f32.fit
+            and f32.launches["em_bucket"] == f32.want > 0,
+            f"{tag} --fast-em, STRAWB_FASTEM_AFTER=0: {f32.d.n_device} on the "
+            f"card of {f32.fit}, {f32.launches['em_bucket']} launches of "
+            f"{f32.want}")
+    f32_p99 = tpm_p99(host.out, f32.out, f"{tag} --fast-em in f32")
+    log(f"  {tag} --fast-em at the default bound: {fk.d.n_device} on the "
+        f"card, TPM p99 {fk_p99:.3e}; in f32 from the first problem: "
+        f"{f32.d.n_device} on the card, TPM p99 {f32_p99:.3e}")
+
+    preps, chunks, tables = prep_runs(base, host, modes=("all",),
+                                      prefix="big_")
+    mcfs, calls = mcf_runs(gtf, bam, None, prefix="big_")
+    fs = mcfs["g_mcf"].sample.flow_stats
+    counts = {"em_tiers": dev_em.tiers, "em_host_no_tier":
+              dev_em.d.n_host, "mcf_classes": {
+                  k[len("device_"):]: fs.get(k, 0) for k in (
+                      "device_warp", "device_block", "device_block_global")},
+              "mcf_host_over_256": fs.get("host_over_max", 0)}
+    log(f"  {tag} tier and class counts: " + json.dumps(counts))
+
+    first = {"em_tiers": [t for t, c in enumerate(dev_em.tiers)
+                          if c and not e2e["tier_counts"][t]],
+             "mcf_classes": [c for c, k in counts["mcf_classes"].items()
+                             if k and not e2e["flow_stats"]["g_mcf"].get(
+                                 "device_" + c)]}
+    log(f"  reached for the first time at {n_frags} fragments: {first}")
+    buckets = {"x".join(map(str, b[0].shape)):
+               compare_bucket(dev, b, f"{tag} main-path tier {t}")
+               for t, b in sorted(dev_em.d.buckets.items())}
+    prep = main_path_prep(dev, chunks, tables, f"{tag} main-path prep chunk")
+    mcf = main_path_mcf(dev, calls)
+    every = [p for c in calls for p in c]
+    from strawberry_tpu_torch.assembly.cuda_mcf import CLASSES
+    lo = 0
+    for name, top in CLASSES:
+        of = [p for p in every if lo < p[0].shape[0] <= top]
+        if of and name != "warp":
+            mcf["class_" + name] = compare_ragged(
+                dev, of, f"{tag} main-path MCF, the {name} class")
+        lo = top
+    return {"n_frags": n_frags, "counts": counts, "first_reached": first,
+            "walls_s": {"g_r_host": host.wall, "g_r_device_em": dev_em.wall,
+                        "g_r_fast_em": fk.wall, "g_r_fast_em_f32": f32.wall,
+                        "g_r_prep_all": preps["all"].wall,
+                        "g_mcf": mcfs["g_mcf"].wall,
+                        "g_mcf_force_host": mcfs["g_mcf_force_host"].wall},
+            "launches": {"em_bucket_f64": n,
+                         "em_bucket_fast_em": fk.launches["em_bucket"],
+                         "em_bucket_f32": f32.launches["em_bucket"],
+                         "quant_prep": preps["all"].launches["quant_prep"],
+                         "mcf_bucket": mcfs["g_mcf"].launches["mcf_bucket"]},
+            "prep_stats": preps["all"].sample.prep_stats,
+            "fast_em_device": fk.d.n_device, "fast_em_tpm_p99": fk_p99,
+            "f32_tpm_p99": f32_p99, "main_path_buckets": buckets,
+            "main_path_prep_chunk": prep, "main_path_mcf": mcf}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-frags", type=int, default=1_000_000)
+    ap.add_argument("--big-frags", type=int, default=BIG_FRAGS,
+                    help="fragments of phase 7's realistic set")
     args = ap.parse_args()
 
     import torch
@@ -2409,6 +2605,19 @@ def main():
     card = card_line()
     log(f"phase 1: {card}")
     sys.path.insert(0, ROOT)
+    gen = start_big_set(args.big_frags)
+    try:
+        return phases(args, card, t_start, gen)
+    finally:
+        if gen[0] is not None and gen[0].poll() is None:
+            gen[0].kill()
+            gen[0].wait()
+
+
+def phases(args, card, t_start, gen):
+    """Phases 2-7 and the two last lines; phase 7's set is generated by
+    `gen` (start_big_set) meanwhile."""
+    import torch
     dev = torch.device("cuda")
 
     log("phase 2: build")
@@ -2480,6 +2689,12 @@ def main():
     routes = routing_phase(args.n_frags, e2e)
     log("  routing: " + json.dumps(routes))
 
+    log(f"phase 7: end to end at bench.py's full realistic size, "
+        f"{args.big_frags} fragments")
+    big = big_phase(args.big_frags, dev, gen, e2e)
+    log("  " + json.dumps({k: v for k, v in big.items()
+                           if not k.startswith("main_path")}))
+
     src = "strawberry_tpu_torch/csrc/em_bucket.cu"
     replaces = {"f32": "strawberry_tpu/quant/pallas_em.py:34",
                 "f64": "strawberry_tpu/quant/device.py:56"}
@@ -2497,7 +2712,9 @@ def main():
          "replaces": replaces[dt], "tolerance": tolerance[dt],
          "launches": e2e["launches"][f"em_bucket_{dt}"],
          **rep[dt], "main_path_buckets": {
-             t: r[dt] for t, r in e2e["main_path_buckets"].items()}}
+             t: r[dt] for t, r in e2e["main_path_buckets"].items()},
+         "main_path_buckets_5m": {
+             t: r[dt] for t, r in big["main_path_buckets"].items()}}
         for dt in ("f32", "f64")] + [
         {"name": "quant_prep", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/quant_prep.cu",
@@ -2506,14 +2723,16 @@ def main():
                       "two runs identical",
          "launches": e2e["launches"]["quant_prep"], **prep,
          "ptxas": ptxas,
-         "main_path_chunk": e2e["main_path_prep_chunk"]},
+         "main_path_chunk": e2e["main_path_prep_chunk"],
+         "main_path_chunk_5m": big["main_path_prep_chunk"]},
         {"name": "mcf_bucket", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/mcf_bucket.cu",
          "replaces": "strawberry_tpu/assembly/device.py:29",
          "tolerance": "array-equal to the plain version and to "
                       "mincostflow.solve_dense; two runs identical",
          "launches": e2e["launches"]["mcf_bucket"], **mcf,
-         "main_path": e2e["main_path_mcf"]},
+         "main_path": e2e["main_path_mcf"],
+         "main_path_5m": big["main_path_mcf"]},
         {"name": "shard_colsum", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/shard_reduce.cu",
          "replaces": "strawberry_tpu/parallel/collectives.py:26",

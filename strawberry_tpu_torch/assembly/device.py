@@ -40,8 +40,9 @@ def batched_mcf(problems: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     routing.py's default (the crossover that tools/mcf_crossover.py
     measures on the H100, PERF.md "H100 crossovers"); STRAWB_FORCE_HOST
     sends every problem to the host. `stats` counts the problems solved
-    on the "device" and the "host", and the device ones by the kernel's
-    size class ("device_warp", "device_block", "device_block_global").
+    on the "device" and the "host", the host ones above 256 nodes
+    ("host_over_max"), and the device ones by the kernel's size class
+    ("device_warp", "device_block", "device_block_global").
     Returns the per-problem flow matrix, or None where the problem is
     infeasible."""
     from ..routing import mcf_min_nodes
@@ -50,8 +51,10 @@ def batched_mcf(problems: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
         device_min_nodes = mcf_min_nodes()
     results: List[Optional[np.ndarray]] = [None] * len(problems)
     on_dev = []
+    over = 0
     for i, (c, _h, _l) in enumerate(problems):
         m = c.shape[0]
+        over += m > MAX_NODES
         if m < device_min_nodes or m > MAX_NODES:
             results[i] = solve_dense(*[x.copy() for x in problems[i]])
         else:
@@ -59,6 +62,7 @@ def batched_mcf(problems: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     if stats is not None:
         stats["device"] = stats.get("device", 0) + len(on_dev)
         stats["host"] = stats.get("host", 0) + len(problems) - len(on_dev)
+        stats["host_over_max"] = stats.get("host_over_max", 0) + over
     if not on_dev:
         return results
 

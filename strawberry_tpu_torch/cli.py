@@ -1,8 +1,12 @@
 """Command-line interface of the PyTorch/CUDA port: the same flags as
 strawberry_tpu.cli (ref: src/Strawberry.cpp:32-233; `build_parser` and
 `config_from_args` are copied from it), with the device work on the GPU:
-the per-locus EM under --fast-em or STRAWB_DEVICE_EM=1, pass-2 quant prep
-under STRAWB_DEVICE_PREP=all|budget, and the pass-1 flow solves under
+the per-locus EM in f64 under STRAWB_DEVICE_EM=1, and in f32 under
+--fast-em past its first routing.fastem_after() problems (by default no
+bound, set from the H100: every problem stays on the host and --fast-em
+gives the default run's bytes; STRAWB_FASTEM_AFTER=N keeps the first N
+on the host and sends the rest to the card), pass-2 quant prep under
+STRAWB_DEVICE_PREP=all|budget, and the pass-1 flow solves under
 STRAWB_DEVICE_MCF=1.
 
     python -m strawberry_tpu_torch.cli -g ann.gtf [-r] [--fast-em] in.bam
@@ -28,6 +32,21 @@ import sys
 from .config import Config
 from .pipeline import run_driver
 from .utils.profiling import GLOBAL as PROF
+
+
+def fast_em_help() -> str:
+    """--fast-em's help: the route routing.fastem_after() gives."""
+    from .routing import fastem_after
+    k = fastem_after()
+    if k is None:
+        return ("the f32 EM route, with no bound set: every per-locus EM "
+                "stays on the host in f64, as in the default run, whose "
+                "output it gives; STRAWB_FASTEM_AFTER=N keeps the first N "
+                "loci on the host and runs each later one that fits a "
+                "tier on the GPU in f32 (a CUDA kernel)")
+    return (f"run the per-locus EM on the GPU in f32 (a CUDA kernel) after "
+            f"the first {k} loci, which stay on the host in f64 "
+            "(STRAWB_FASTEM_AFTER=N sets the count)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,10 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-chromosome inputs")
     p.add_argument("--no-tpu", action="store_true",
                    help="run host-only (skip the batched device paths)")
-    p.add_argument("--fast-em", action="store_true",
-                   help="run the per-locus EM on the GPU in f32 (a CUDA "
-                        "kernel; STRAWB_FASTEM_AFTER=N keeps the first N "
-                        "loci on the host)")
+    p.add_argument("--fast-em", action="store_true", help=fast_em_help())
     p.add_argument("--shards", type=int, default=0,
                    help="CORRECTNESS SIMULATION of the N-shard distributed "
                         "pipeline: shards run IN SEQUENCE in this process "

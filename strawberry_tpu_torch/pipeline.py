@@ -1061,7 +1061,8 @@ class Sample:
         self.em_stats = {"device": dispatcher.n_device,
                          "host": dispatcher.n_host + n_raw_ok,
                          "init_failed": len(pending) - dispatcher.n_device
-                         - dispatcher.n_host - n_raw_ok}
+                         - dispatcher.n_host - n_raw_ok,
+                         "tiers": dispatcher.tier_counts}
 
         per_entry: List[Optional[List[Isoform]]] = []
         vec_rows: List[Tuple[int, object, object]] = []  # (entry, ids, th)

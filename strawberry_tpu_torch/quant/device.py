@@ -60,8 +60,8 @@ class EmDispatcher:
     theta (None = EM init failure: no surviving rows, matching
     EmSolver::init returning false, estimate.cpp:374-391).
 
-    Counts device/host routing so the profile and the chip smoke can
-    report the true device fraction."""
+    Counts device/host routing, and the device problems by tier, so the
+    profile and the chip smoke can report the true device fraction."""
 
     def __init__(self, n_problems: int = 0, fast_em: bool = False):
         # grows on demand in add(); pass n_problems when known upfront
@@ -86,6 +86,7 @@ class EmDispatcher:
         self._launched: List[tuple] = []  # (host theta, items) to read
         self.n_device = 0
         self.n_host = 0
+        self.tier_counts = [0] * len(_TIERS)  # problems sent, by tier
 
     def add(self, idx: int, p: "LocusProblem"):
         if idx >= len(self.results):
@@ -103,6 +104,7 @@ class EmDispatcher:
                 if F.shape[0] <= rb and niso <= cb:
                     self._fills[t].append(item)
                     self.n_device += 1
+                    self.tier_counts[t] += 1
                     if len(self._fills[t]) == bb:
                         self._launch(t)
                     return

@@ -31,32 +31,39 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-# NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, "H100 crossovers").
+# NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, "H100 crossovers"), on
+# bench.py's realistic set at 1M fragments and at its full 5M; every rule
+# gives the same value on both sets.
 
 # The golden f64 EM solves on the host: 15,115 of the 19,013 thetas of the
-# 1M-fragment realistic set differ from the host batch's in some bit
-# (PERF.md row "em: f64 default").
+# 1M-fragment set and 15,895 of the 20,262 of the 5M set differ from the
+# host batch's in some bit (PERF.md row "em: f64 default").
 DEVICE_EM = False
 
 # --fast-em keeps every problem on the host (None: no bound), so it takes
-# the default's route and gives its bytes: the host finished the first k
-# problems sooner than the f32 device path at every k measured, 250 to all
-# 19,013 of the realistic set; no crossover up to 19,013 problems (PERF.md
-# row "em: STRAWB_FASTEM_AFTER").
+# the default's route and gives its bytes. A bound needs the f32 path to
+# finish all problems, and every prefix past the bound, sooner than the
+# host route beyond the spread of repeated runs (its median below the
+# host's best). On the 1M set the host route won at every k, 250 to all
+# 19,013; on the 5M set it won on all 20,262 (0.6265 against 0.7979 s
+# median) and at 250, 1,000 and 16,000; the f32 path led only at 4,000,
+# by 0.9% of the best times (PERF.md row "em: STRAWB_FASTEM_AFTER").
 FASTEM_AFTER: Optional[int] = None
 
 # The quant prep's auto mode: "all" and every budget granule had a higher
-# median wall than "off" (PERF.md row "prep: auto mode").
+# median wall than "off" on both sets (PERF.md row "prep: auto mode").
 PREP = "off"
 
 # (hit x isoform) pairs a device granule in the "budget" mode: the budget
-# mode's best median wall (PERF.md row "prep: granule").
+# mode's best median wall on the 1M set; on the 5M set 2048's median was
+# lower (16.097 against 16.778 s) but by less than the larger spread of
+# the two (2.249 s), so the granule stays (PERF.md row "prep: granule").
 PREP_GRANULE = 8192
 
 # Under the opt-in STRAWB_DEVICE_MCF=1, problems with fewer nodes solve on
 # the host: 0, because the card beat solve_dense per problem from the
-# fewest nodes a flow problem has (2) to 256 (PERF.md row "mcf:
-# device_min_nodes").
+# fewest nodes a flow problem has (2) to 256, at the 1M and the 5M set's
+# problems a call (PERF.md row "mcf: device_min_nodes").
 MCF_MIN_NODES = 0
 
 

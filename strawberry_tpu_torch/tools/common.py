@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import shutil
@@ -13,7 +14,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -29,7 +30,8 @@ ROUTING_VARS = ("STRAWB_FORCE_HOST", "STRAWB_DEVICE_EM",
                 "STRAWB_PREP_BUDGET", "STRAWB_DEVICE_MCF")
 
 
-def parser(description: str, data: bool = False) -> argparse.ArgumentParser:
+def parser(description: str, data: bool = False,
+           n_frags: int = 1_000_000) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cpu runs the kernels' plain PyTorch versions (for "
@@ -37,7 +39,7 @@ def parser(description: str, data: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--out", action="store_true",
                    help=f"also write the JSON line to {OUT_DIR}/<tool>.json")
     if data:
-        p.add_argument("--n-frags", type=int, default=1_000_000,
+        p.add_argument("--n-frags", type=int, default=n_frags,
                        help="fragments of the realistic set")
         p.add_argument("--data", default=None,
                        help="a sim.make_dataset directory (sample_01."
@@ -72,34 +74,60 @@ def card(device: str) -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def emit(tool: str, args, result: dict) -> dict:
+def emit(tool: str, args, result: dict, out_dir: str = OUT_DIR) -> dict:
     """Print the tool's one JSON line, the card first; with --out also
-    write it to OUT_DIR/<tool>.json."""
+    write it to <out_dir>/<tool>.json."""
     line = {"card": card(args.device), "tool": tool, **result}
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:
-        os.makedirs(OUT_DIR, exist_ok=True)
-        with open(os.path.join(OUT_DIR, tool + ".json"), "w") as f:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, tool + ".json"), "w") as f:
             f.write(text + "\n")
     return line
 
 
+# bench.py's dataset_realistic, less its fragment count: seed 303, 24
+# chromosomes of 16 Mb, up to 20 isoforms, exons 2-9, lognormal
+# expression, fr, indel 0.02, clip 0.03
+REALISTIC = dict(seed=303, n_chroms=24, chrom_len=16_000_000,
+                 max_isoforms=20, exon_range=(2, 9), abundance="lognormal",
+                 protocol="fr", indel_rate=0.02, clip_rate=0.03)
+
+
+def realistic_dir(n_frags: int) -> str:
+    """Where the realistic set at `n_frags` fragments is generated."""
+    return os.path.join(OUT_DIR, f"realistic_{n_frags}")
+
+
+def set_paths(d: str) -> Tuple[str, str]:
+    """(bam, gtf) of a sim.make_dataset directory."""
+    return (os.path.join(d, "sample_01.sorted.bam"),
+            os.path.join(d, "annotation.gtf"))
+
+
 def dataset(args) -> Tuple[str, str]:
-    """(bam, gtf) of --data, generated on the bench's realistic shape
-    (bench.py's dataset_realistic: seed 303, 24 chromosomes of 16 Mb, up
-    to 20 isoforms, exons 2-9, lognormal expression, fr, indel 0.02, clip
-    0.03) at --n-frags when the directory holds none."""
-    d = args.data or os.path.join(OUT_DIR, f"realistic_{args.n_frags}")
-    bam = os.path.join(d, "sample_01.sorted.bam")
-    gtf = os.path.join(d, "annotation.gtf")
+    """(bam, gtf) of --data, generated on the realistic shape (REALISTIC)
+    at --n-frags when the directory holds none, in a process of its own:
+    the generator's peak resident set (14 GB at 5M fragments) stays out
+    of this process and of the runs it starts (peak_rss_mb)."""
+    d = args.data or realistic_dir(args.n_frags)
+    bam, gtf = set_paths(d)
     if not (os.path.exists(bam) and os.path.exists(gtf)):
-        from ..sim import make_dataset
-        make_dataset(d, seed=303, n_frags=args.n_frags, n_chroms=24,
-                     chrom_len=16_000_000, max_isoforms=20,
-                     exon_range=(2, 9), abundance="lognormal",
-                     protocol="fr", indel_rate=0.02, clip_rate=0.03)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", _GENERATE, d,
+                        str(args.n_frags)], cwd=ROOT, check=True)
+        print(f"generated {args.n_frags} fragments in "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return bam, gtf
+
+
+_GENERATE = """
+import sys
+from strawberry_tpu_torch.sim import make_dataset
+from strawberry_tpu_torch.tools.common import REALISTIC
+make_dataset(sys.argv[1], n_frags=int(sys.argv[2]), **REALISTIC)
+"""
 
 
 @contextlib.contextmanager
@@ -131,22 +159,109 @@ def timed(fn, reps: int) -> Dict[str, float]:
     return {"best_s": min(ts), "median_s": statistics.median(ts)}
 
 
+def digest(path: str) -> str:
+    """The sha256 of a GTF's body."""
+    h = hashlib.sha256()
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#"):
+                h.update(line.encode())
+    return h.hexdigest()
+
+
+def tpms(path: str) -> Dict[str, float]:
+    """{transcript_id: TPM} of a GTF's transcript lines."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#") and "\ttranscript\t" in line:
+                attrs = line.rsplit("\t", 1)[-1]
+                tid = attrs.split('transcript_id "')[1].split('"')[0]
+                out[tid] = float(attrs.split('TPM "')[1].split('"')[0])
+    return out
+
+
+# --fast-em's rule against the default run (PERF.md section 2)
+TPM_P99_MAX = 1e-3
+
+
+def tpm_check(ref_gtf: str, gtf: str) -> dict:
+    """The --fast-em rule: the same transcript set as `ref_gtf`, every TPM
+    finite, and the TPM relative error's p99 at most TPM_P99_MAX."""
+    import numpy as np
+    ref, got = tpms(ref_gtf), tpms(gtf)
+    if not ref or set(ref) != set(got):
+        return {"same_transcripts": False, "ok": False}
+    a = np.array([ref[t] for t in sorted(ref)])
+    b = np.array([got[t] for t in sorted(ref)])
+    rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-12)
+    p99 = float(np.percentile(rel, 99))
+    finite = bool(np.isfinite(b).all())
+    return {"same_transcripts": True, "finite": finite,
+            "tpm_p99_rel_err": p99, "tpm_max_rel_err": float(rel.max()),
+            "ok": finite and p99 <= TPM_P99_MAX}
+
+
+def peak_rss_mb(status: str = "/proc/self/status") -> float:
+    """This process's peak resident set in MiB: VmHWM, which the kernel
+    resets at exec, where `status` gives it; else getrusage's ru_maxrss,
+    which after an exec also holds the peak its parent had reached when
+    it forked (so dataset() makes a set in a process of its own, and a
+    tool's own process stays small)."""
+    with open(status) as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) / 1024
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+# the kernels' wrappers (module, function), each counting its launches and
+# those of each __global__ function it launches
+WRAPPERS = {"em_bucket": ("strawberry_tpu_torch.quant.cuda_em",
+                          "em_bucket_cuda"),
+            "quant_prep": ("strawberry_tpu_torch.quant.cuda_prep",
+                           "quant_prep_cuda"),
+            "mcf_bucket": ("strawberry_tpu_torch.assembly.cuda_mcf",
+                           "mcf_ragged_cuda"),
+            "shard_colsum": ("strawberry_tpu_torch.parallel.cuda_reduce",
+                             "shard_colsum_cuda")}
+
 # CLI runs in this fresh process, one after another, with the pipeline's
 # phase timer on: per run its exit code, wall (to the device
-# synchronized), EM / prep / flow splits and phase seconds, as one JSON
-# list on the last line.
+# synchronized), EM / prep / flow splits, phase seconds, the process's peak
+# RSS so far (peak_rss_mb), and each kernel's launches (and each
+# __global__ function's), as one JSON list on the last line. The wrappers
+# are imported after a run, never before the first: that would take
+# `import torch` out of its wall. With profile=1 the first run is under
+# torch.profiler (device activity only), which also adds each __global__
+# function's kernel events and device milliseconds.
 _RUNNER = """
-import json, sys, time
+import importlib, json, re, sys, time
 from strawberry_tpu_torch import cli
+from strawberry_tpu_torch.tools.common import WRAPPERS, peak_rss_mb
 from strawberry_tpu_torch.utils import profiling
 profiling.enable()
 run = cli.run_driver
+argvs, profile = json.loads(sys.argv[1]), sys.argv[2] == "1"
+def wrappers():
+    return {k: getattr(importlib.import_module(m), f)
+            for k, (m, f) in WRAPPERS.items()}
 out = []
-for argv in json.loads(sys.argv[1]):
+for i, argv in enumerate(argvs):
     samples = []
     cli.run_driver = lambda *a, **k: samples.append(run(*a, **k)) \\
         or samples[-1]
     profiling.GLOBAL.phases.clear()
+    if i:
+        for w in wrappers().values():
+            w.launches = 0
+            w.function_launches = dict.fromkeys(w.function_launches, 0)
+    prof = None
+    if profile and not i:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     import torch
@@ -154,12 +269,31 @@ for argv in json.loads(sys.argv[1]):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     s = samples[0] if samples else None
-    out.append({"rc": rc, "wall_s": wall,
-                "em_stats": getattr(s, "em_stats", {}),
-                "prep_stats": getattr(s, "prep_stats", None) or {},
-                "flow_stats": getattr(s, "flow_stats", {}),
-                "phases_s": {k: v.seconds for k, v in
-                             profiling.GLOBAL.phases.items()}})
+    ws = wrappers()
+    fl = {fn: n for w in ws.values() for fn, n in w.function_launches.items()}
+    r = {"rc": rc, "wall_s": wall,
+         "max_rss_mb": peak_rss_mb(),
+         "em_stats": getattr(s, "em_stats", {}),
+         "prep_stats": getattr(s, "prep_stats", None) or {},
+         "flow_stats": getattr(s, "flow_stats", {}),
+         "launches": {k: w.launches for k, w in ws.items()},
+         "function_launches": fl,
+         "phases_s": {k: v.seconds for k, v in
+                      profiling.GLOBAL.phases.items()}}
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        ms, events = dict.fromkeys(fl, 0.0), dict.fromkeys(fl, 0)
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:  # older torch
+                us = e.self_cuda_time_total
+            for fn in fl:
+                # whole names: the prep's kernel is not em_rows_kernel
+                if re.search(rf"\\b{fn}\\b", e.key):
+                    ms[fn] += us / 1e3
+                    events[fn] += e.count
+        r.update(kernel_ms=ms, kernel_events=events)
+    out.append(r)
 print(json.dumps(out))
 """
 
@@ -167,12 +301,14 @@ PROCESS_TIMEOUT_S = 900
 
 
 def cli_process(argvs: List[List[str]], env: Dict[str, str],
-                device: str) -> List[dict]:
+                device: str, profile: bool = False) -> List[dict]:
     """Runs of the port's CLI, one after another in one fresh process
-    under `env` (on top of this environment less ROUTING_VARS)."""
+    under `env` (on top of this environment less ROUTING_VARS); with
+    `profile` (on the card only) the first under torch.profiler."""
     full = {k: v for k, v in os.environ.items() if k not in ROUTING_VARS}
     full.update(env, STRAWB_PLATFORM=device)
-    proc = subprocess.run([sys.executable, "-c", _RUNNER, json.dumps(argvs)],
+    proc = subprocess.run([sys.executable, "-c", _RUNNER, json.dumps(argvs),
+                           "1" if profile and device == "cuda" else "0"],
                           cwd=ROOT, env=full, capture_output=True, text=True,
                           timeout=PROCESS_TIMEOUT_S)
     if proc.returncode != 0:
@@ -186,48 +322,64 @@ def cli_process(argvs: List[List[str]], env: Dict[str, str],
 
 
 def cli_walls(modes: Dict[str, Tuple[List[str], Dict[str, str]]],
-              base: List[str], reps: int, device: str, reference: str,
-              runs_dir: str, warm: bool = False) -> Dict[str, dict]:
+              base: List[str], reps: int, device: str,
+              reference: Optional[str], runs_dir: str, warm: bool = False,
+              warmup: int = 1, profile: bool = False) -> Dict[str, dict]:
     """Each mode (name -> (extra argv, env)) of `base` in fresh processes,
-    writing under `runs_dir`: one untimed run each, then `reps` timed runs
-    each, in turns (the order rotates each round, so no mode runs in a
-    block). Per mode: the walls, their median, best and spread (max -
-    min), the last run's splits and phase seconds, each run's
-    `locus_context` and `host_em` seconds, and whether every run's GTF
-    body equals the `reference` mode's first. With `warm`, each process
-    runs its mode a second time after the timed one (`warm_walls_s`,
-    `warm_phases_s`): what a fresh process pays that a later run in the
-    same process does not."""
+    writing under `runs_dir`: `warmup` untimed runs each (under
+    torch.profiler with `profile`, on the card: `kernel_ms` and
+    `kernel_events` by __global__ function), then `reps` timed runs each,
+    in turns (the order rotates each round, so no mode runs in a block).
+    Per mode: the walls, their median, best and spread (max - min), the
+    last run's splits, launches and phase seconds, each run's peak RSS,
+    `locus_context` and `host_em` seconds, the sha256 of its GTF body
+    (`body_sha256`, None when two runs differ), the path of its first
+    run's GTF (`gtf`, kept; every later one is removed once read), and
+    whether every run's GTF body equals the `reference` mode's first
+    (with a reference). With `warm`, each timed process runs its mode a
+    second time after the timed one (`warm_walls_s`, `warm_phases_s`):
+    what a fresh process pays that a later run in the same process does
+    not."""
     names = list(modes)
-    out = {n: {"walls_s": [], "locus_context_s": [], "host_em_s": []}
-           for n in names}
+    out = {n: {"walls_s": [], "max_rss_mb": [], "locus_context_s": [],
+               "host_em_s": []} for n in names}
     if warm:
         for n in names:
             out[n]["warm_walls_s"] = []
-    ref_body, bodies_equal = None, {n: True for n in names}
-    order = [reference] + [n for n in names if n != reference]
-    for rnd in range(1 + reps):
+    digests = {n: set() for n in names}
+    order = ([reference] if reference else []) + [n for n in names
+                                                  if n != reference]
+    for rnd in range(warmup + reps):
         k = rnd % len(order)
         for name in order[k:] + order[:k]:
             extra, env = modes[name]
+            timed_run = rnd >= warmup
             gtfs = [os.path.join(runs_dir, f"{name}.{rnd}.{i}.gtf")
-                    for i in range(2 if warm and rnd else 1)]
+                    for i in range(2 if warm and timed_run else 1)]
             res = cli_process([extra + base + ["-o", g, "-T", g[:-4] + ".log"]
-                               for g in gtfs], env, device)
+                               for g in gtfs], env, device,
+                              profile=profile and not timed_run)
             for g in gtfs:
-                b = body(g)
-                if ref_body is None and name == reference:
-                    ref_body = b
-                if ref_body is not None and b != ref_body:
-                    bodies_equal[name] = False
-            if rnd == 0:
-                continue
+                digests[name].add(digest(g))
+                if "gtf" not in out[name]:
+                    out[name]["gtf"] = g
+                else:
+                    for path in (g, g[:-4] + ".log"):
+                        os.remove(path)
             m = out[name]
+            if not timed_run:
+                for key in ("kernel_ms", "kernel_events", "launches",
+                            "function_launches"):
+                    if key in res[0]:
+                        m.setdefault("profiled", {})[key] = res[0][key]
+                continue
             m["walls_s"].append(res[0]["wall_s"])
+            m["max_rss_mb"].append(res[-1]["max_rss_mb"])
             m["locus_context_s"].append(
                 res[0]["phases_s"].get("locus_context", 0.0))
             m["host_em_s"].append(res[0]["phases_s"].get("host_em", 0.0))
-            for key in ("em_stats", "prep_stats", "flow_stats", "phases_s"):
+            for key in ("em_stats", "prep_stats", "flow_stats", "launches",
+                        "function_launches", "phases_s"):
                 m[key] = res[0][key]
             if warm:
                 m["warm_walls_s"].append(res[1]["wall_s"])
@@ -237,7 +389,10 @@ def cli_walls(modes: Dict[str, Tuple[List[str], Dict[str, str]]],
         w = m["walls_s"]
         m.update(median_s=statistics.median(w), best_s=min(w),
                  spread_s=max(w) - min(w),
-                 body_equals_reference=bodies_equal[name])
+                 body_sha256=next(iter(digests[name]))
+                 if len(digests[name]) == 1 else None)
+        if reference:
+            m["body_equals_reference"] = digests[name] == digests[reference]
         if warm:
             m["warm_median_s"] = statistics.median(m["warm_walls_s"])
     return out

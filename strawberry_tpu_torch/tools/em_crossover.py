@@ -36,11 +36,13 @@ package's tools/bench_em_crossover.py.
 The rules routing.py applies to the numbers: the f64 EM goes to the card
 by default only if its thetas are bit-identical on every problem, its
 body equals its STRAWB_FORCE_HOST=1 twin's and its median wall is no
-higher than the host default's. STRAWB_FASTEM_AFTER is the largest k at
-which the host finishes the first k problems sooner than the f32 path:
-"all" (no bound: --fast-em takes the default's route) when the host
-route wins at every k, all of them included; else the largest k at
-which host_dispatch, the route a bound sends the first k problems, wins.
+higher than the host default's. STRAWB_FASTEM_AFTER gets a bound only
+where the f32 path finished all the problems sooner than the host route
+beyond the spread of repeated passes (its median below the host's best):
+then the largest k at which it did not beat host_dispatch, the route a
+bound sends the first k problems, that way (0: none), provided it beat
+the host route that way at every larger prefix; else "all" (no bound:
+--fast-em takes the default's route).
 """
 from __future__ import annotations
 
@@ -155,15 +157,25 @@ def solve(name, problems):
         return dispatch(problems, fast_em=name != "f64")
 
 
+def sooner(a, b):
+    """Solver a finished sooner than solver b beyond the spread of b's
+    passes: a's median below b's best."""
+    return a["median_s"] < b["best_s"]
+
+
 def fastem_after_rule(prefixes):
-    """"all" when the host route finished every prefix sooner than the f32
-    path; else the largest k at which host_dispatch did (0: none)."""
-    if all(r["host"]["median_s"] < r["f32"]["median_s"]
-           for r in prefixes.values()):
+    """"all" unless the f32 path finished all the problems sooner than the
+    host route; else the largest k at which it did not finish sooner than
+    host_dispatch (0: none), if it finished sooner than the host route at
+    every larger k, else "all"."""
+    rows = sorted(prefixes.values(), key=lambda r: r["k"])
+    if not sooner(rows[-1]["f32"], rows[-1]["host"]):
         return "all"
-    return max([r["k"] for r in prefixes.values()
-                if r["host_dispatch"]["median_s"] < r["f32"]["median_s"]],
-               default=0)
+    k = max([r["k"] for r in rows
+             if not sooner(r["f32"], r["host_dispatch"])], default=0)
+    if all(sooner(r["f32"], r["host"]) for r in rows if r["k"] > k):
+        return k
+    return "all"
 
 
 def exactness(ref, got):

@@ -16,12 +16,14 @@ run's.
 
 The rules routing.py applies: "all" or "budget" becomes the auto mode
 only if its median wall beats "off" by more than the larger spread of the
-two; the granule is the budget mode's best by median wall.
+two; the granule is the budget mode's best by median wall, but moves
+from routing.PREP_GRANULE only if that best beats it by the same rule.
 """
 from __future__ import annotations
 
 import sys
 
+from .. import routing
 from . import common
 
 GRANULES = (2048, 8192, 32768, 131072)
@@ -45,14 +47,17 @@ def main(argv=None):
             modes, ["-g", gtf, "-r", common.STRAND, bam], args.reps,
             args.device, reference="off", runs_dir=work)
     budgets = {g: walls[f"budget_{g}"] for g in granules}
-    best_granule = min(budgets, key=lambda g: budgets[g]["median_s"])
-    winners = [m for m in ("all", f"budget_{best_granule}")
+    granule = min(budgets, key=lambda g: budgets[g]["median_s"])
+    now = routing.PREP_GRANULE
+    if now in budgets and not common.beats(budgets[granule], budgets[now]):
+        granule = now
+    winners = [m for m in ("all", f"budget_{granule}")
                if common.beats(walls[m], walls["off"])]
     auto = min(winners, key=lambda m: walls[m]["median_s"]) \
         if winners else "off"
     common.emit("prep_crossover", args, {
         "device": args.device, "reps": args.reps, "modes": walls,
-        "auto_rule": auto.split("_")[0], "granule_rule": best_granule,
+        "auto_rule": auto.split("_")[0], "granule_rule": granule,
         "note": "walls of cli.main on the host's clock to the device "
                 "synchronized, each in a fresh process with the phase "
                 "timer on (locus_context: the main thread's seconds)"})

@@ -80,8 +80,9 @@ def test_batched_mcf_matches_solve_dense(cpu_platform):
     problems = problems_40()
     stats = {}
     flows = batched_mcf(problems, stats=stats)
-    assert stats == {"device": 40, "host": 0, "device_warp": 40,
-                     "device_block": 0, "device_block_global": 0}
+    assert stats == {"device": 40, "host": 0, "host_over_max": 0,
+                     "device_warp": 40, "device_block": 0,
+                     "device_block_global": 0}
     assert_matches_solve_dense(problems, flows)
 
 
@@ -101,13 +102,13 @@ def test_batched_mcf_routing(cpu_platform):
     flows = batched_mcf(problems, device_min_nodes=10, stats=stats)
     n_small = sum(p[0].shape[0] < 10 for p in problems)
     assert stats == {"device": 6 - n_small, "host": n_small + 1,
-                     "device_warp": 6 - n_small, "device_block": 0,
-                     "device_block_global": 0}
+                     "host_over_max": 1, "device_warp": 6 - n_small,
+                     "device_block": 0, "device_block_global": 0}
     assert_matches_solve_dense(problems, flows)
     cpu_platform.setenv("STRAWB_FORCE_HOST", "1")
     stats = {}
     assert_matches_solve_dense(problems, batched_mcf(problems, stats=stats))
-    assert stats == {"device": 0, "host": 7}
+    assert stats == {"device": 0, "host": 7, "host_over_max": 1}
 
 
 def test_batched_mcf_counts_size_classes(cpu_platform):
@@ -120,6 +121,7 @@ def test_batched_mcf_counts_size_classes(cpu_platform):
     flows = batched_mcf(problems, stats=stats)
     sizes = [p[0].shape[0] for p in problems]
     assert stats == {"device": len(problems) - 1, "host": 1,
+                     "host_over_max": 1,
                      "device_warp": sum(m <= 32 for m in sizes),
                      "device_block": sum(32 < m <= 128 for m in sizes),
                      "device_block_global": sum(128 < m <= 256

@@ -135,7 +135,7 @@ def test_readers_take_the_table(env):
     assert EmDispatcher().force_host is True
     stats = {}
     batched_mcf(problems, stats=stats)
-    assert stats == {"device": 0, "host": 2}
+    assert stats == {"device": 0, "host": 2, "host_over_max": 0}
 
 
 def test_a_table_that_routes_to_a_missing_gpu_raises(env):
@@ -154,26 +154,70 @@ def test_a_table_that_routes_to_a_missing_gpu_raises(env):
 
 
 def prefix_rows(host, host_dispatch, f32):
-    """em_crossover's prefix rows from (k, median seconds) per solver."""
-    return {str(k): {"k": k, "host": {"median_s": h},
-                     "host_dispatch": {"median_s": hd},
-                     "f32": {"median_s": f}}
+    """em_crossover's prefix rows from (k, (median, best) seconds) of the
+    host and (median, best) of the other two solvers."""
+    def t(mb):
+        return {"median_s": mb[0], "best_s": mb[1]}
+    return {str(k): {"k": k, "host": t(h), "host_dispatch": t(hd),
+                     "f32": t(f)}
             for (k, h), hd, f in zip(host, host_dispatch, f32)}
 
 
 @pytest.mark.parametrize("case,want", [
     # the host route sooner at every k: no bound
-    (([(250, 1.0), (1000, 2.0)], [1.5, 3.0], [2.0, 4.0]), "all"),
-    # the f32 path sooner at 1000: the largest k host_dispatch wins
-    (([(250, 1.0), (1000, 5.0)], [1.5, 6.0], [2.0, 4.0]), 250),
-    # host_dispatch never sooner: 0
-    (([(250, 3.0), (1000, 5.0)], [2.5, 6.0], [2.0, 4.0]), 0),
+    (([(250, (1.0, 0.9)), (1000, (2.0, 1.9))], [(1.5, 1.4), (3.0, 2.9)],
+      [(2.0, 1.9), (4.0, 3.9)]), "all"),
+    # the f32 path sooner on all problems, beyond the host's spread: the
+    # largest k at which it did not beat host_dispatch that way
+    (([(250, (1.0, 0.9)), (1000, (5.0, 4.8))], [(1.5, 1.4), (6.0, 5.8)],
+      [(2.0, 1.9), (4.0, 3.9)]), 250),
+    # host_dispatch beaten at every k: 0
+    (([(250, (3.0, 2.9)), (1000, (5.0, 4.9))], [(2.5, 2.4), (6.0, 5.9)],
+      [(2.0, 1.9), (4.0, 3.9)]), 0),
+    # the f32 median lower on all problems, but not below the host's best
+    # (within the spread of its repeats): no bound
+    (([(250, (1.0, 0.9)), (1000, (4.0, 3.5))], [(1.5, 1.4), (6.0, 5.8)],
+      [(2.0, 1.9), (3.8, 3.7)]), "all"),
+    # the f32 path sooner on all problems, but not at a prefix past the
+    # bound: no bound
+    (([(250, (1.0, 0.9)), (1000, (5.0, 4.9)), (4000, (20.0, 19.0))],
+      [(1.5, 1.4), (8.0, 7.9), (40.0, 39.0)],
+      [(2.0, 1.9), (6.0, 5.9), (10.0, 9.9)]), "all"),
 ])
 def test_fastem_after_rule(case, want):
     assert em_crossover.fastem_after_rule(prefix_rows(*case)) == want
 
 
 # ---------------------------------------------------------------- tools
+def fast_em_help():
+    from strawberry_tpu_torch.cli import build_parser
+    (action,) = [a for a in build_parser()._actions
+                 if "--fast-em" in a.option_strings]
+    return " ".join(action.help.split())
+
+
+def help_states(text, bound):
+    if bound is None:
+        assert "every per-locus EM stays on the host" in text
+        assert "as in the default run, whose output it gives" in text
+    else:
+        assert text.startswith("run the per-locus EM on the GPU in f32")
+        assert f"after the first {bound} loci" in text
+
+
+@pytest.mark.parametrize("bound", [None, 0, 12])
+def test_fast_em_help_states_the_default_route(env, bound):
+    """--fast-em's help says the route routing.FASTEM_AFTER gives: with no
+    bound (the default), every EM on the host and the default run's
+    output; with a bound N, the GPU in f32 past the first N loci; and
+    STRAWB_FASTEM_AFTER, which overrides the constant, the same way."""
+    help_states(fast_em_help(), routing.FASTEM_AFTER)
+    env.setattr(routing, "FASTEM_AFTER", bound)
+    help_states(fast_em_help(), bound)
+    env.setenv("STRAWB_FASTEM_AFTER", "7")
+    help_states(fast_em_help(), 7)
+
+
 @pytest.fixture(scope="module")
 def small_set(tmp_path_factory):
     d = tmp_path_factory.mktemp("routing_set")
