@@ -2,7 +2,7 @@
 """Chip smoke for strawberry_tpu_torch: drives the port's main paths once on
 one NVIDIA GPU and fails unless every phase holds.
 
-    python3 chip_smoke.py [--n-frags N] [--big-frags M]
+    python3 chip_smoke.py [--n-frags N] [--big-frags M] [--easy-frags E]
 
 Phases:
   1. the card's name and power limit (nvidia-smi); CUDA must be available.
@@ -116,8 +116,9 @@ Phases:
      the default's, every tier-fitting problem past it through the f32
      kernel, TPM p99 relative error <= 1e-3); no STRAWB_DEVICE_MCF=1
      problem on the card lies below device_min_nodes.
-  7. end to end on the same shape at bench.py's full size, 5M fragments
-     (~10M reads; --big-frags), generated once under
+  7. end to end on the same shape at 2.5M fragments (~4.9M reads;
+     --big-frags; cut from bench.py's 5M to keep the smoke well inside
+     its time with phase 8's set made beside it), generated once under
      build/strawberry_tpu_torch/crossover/ (where tools/realistic.py
      looks for it) by a process of its own that starts after phase 1 and
      runs beside phases 2-6 on the host's other cores (so phases 2-6's
@@ -135,6 +136,16 @@ Phases:
      first prep chunk of 100 loci (every chunk array-equal), every MCF
      problem in one call, the largest call, and each size class above the
      warp class.
+  8. the same on bench.py's easy set (dataset_10m: seed 101, 16 x 2 Mb,
+     up to 8 isoforms, rf, no XS tag; the reference's published 10M-read
+     scale) at 5M fragments (--easy-frags), every run with --rf, its set
+     generated as phase 7's, by a process of its own started beside it
+     after phase 1, into build/strawberry_tpu_torch/crossover/easy_<n>/
+     (where tools/realistic.py --shape easy and tools/lowmem_scaling.py
+     look for it); besides phase 7's runs, `-g` (the default) against
+     `-g --low-mem` (byte for byte, no launch in either); the first prep
+     chunk is timed (its flushes of deep loci are halved to fit the prep
+     tiers, so none holds 100 loci).
 
 The prep and MCF times come with their bounds too. The line before the
 last is the JSON kernel report; the last line is
@@ -1257,21 +1268,21 @@ def check_sharded_em(dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def realistic_paths(n_frags):
-    """The realistic set's directory, BAM and GTF at `n_frags` fragments
-    (tools/common.py: bench.py's dataset_realistic shape)."""
+def shape_paths(shape, n_frags):
+    """The directory, BAM and GTF of the set of `shape` (tools/common.py
+    SHAPES: realistic is bench.py's dataset_realistic, easy its
+    dataset_10m) at `n_frags` fragments, and the shape's strand flag."""
     from strawberry_tpu_torch.tools import common
-    d = common.realistic_dir(n_frags)
-    return (d, *common.set_paths(d))
+    d = common.set_dir(shape, n_frags)
+    return (d, *common.set_paths(d), common.SHAPES[shape][1])
 
 
 def realistic_set(n_frags):
-    from strawberry_tpu_torch.sim import make_dataset
-    from strawberry_tpu_torch.tools.common import REALISTIC
-    d, bam, gtf = realistic_paths(n_frags)
+    from strawberry_tpu_torch.tools.common import generate
+    d, bam, gtf, _strand = shape_paths("realistic", n_frags)
     if not (os.path.exists(bam) and os.path.exists(gtf)):
         t0 = time.perf_counter()
-        make_dataset(d, n_frags=n_frags, **REALISTIC)
+        generate(d, "realistic", n_frags)
         log(f"  generated {n_frags} fragments in "
             f"{time.perf_counter() - t0:.1f} s")
     return bam, gtf
@@ -1588,14 +1599,15 @@ def chunk_shapes(chunks):
                                    "max_features"))}
 
 
-def main_path_prep(dev, chunks, tables, what):
+def main_path_prep(dev, chunks, tables, what, min_loci=100):
     """The prep kernel on the chunks a STRAWB_DEVICE_PREP=all run made:
-    the first of at least 100 device loci (a full 128-locus flush less
-    its host-routed loci) timed with its bound, and every chunk
-    array-equal to the plain version."""
-    chunk = next((c for c in chunks if len(c[0]["ni"]) >= 100), None)
-    require(chunk, f"{what}: STRAWB_DEVICE_PREP=all made no chunk of 100 "
-            "loci")
+    the first of at least `min_loci` device loci (100: a full 128-locus
+    flush less its host-routed loci; build_batch_device halves a flush of
+    deep loci until its hits fit the prep tiers) timed with its bound,
+    and every chunk array-equal to the plain version."""
+    chunk = next((c for c in chunks if len(c[0]["ni"]) >= min_loci), None)
+    require(chunk, f"{what}: STRAWB_DEVICE_PREP=all made no chunk of "
+            f"{min_loci} loci")
     out = compare_prep(dev, chunk[0], tables, chunk[1], what)
     out["all_chunks"] = check_prep_chunks(dev, chunks, tables)
     return out
@@ -1622,7 +1634,7 @@ def check_prep_chunks(dev, chunks, tables):
     return {"chunks": len(chunks), "shapes": shapes}
 
 
-def mcf_runs(gtf, bam, g_host, prefix=""):
+def mcf_runs(gtf, bam, g_host, prefix="", strand="--fr"):
     """`-g` under STRAWB_DEVICE_MCF=1, against the same run with
     STRAWB_FORCE_HOST=1 added (every flow on mincostflow.solve_dense): the
     same GTF body, device problems and MCF launches. Returns ({name: Run}, the problems of each
@@ -1638,7 +1650,7 @@ def mcf_runs(gtf, bam, g_host, prefix=""):
         calls.append([tuple(np.array(a) for a in p) for p in problems])
         return pack(problems, pin=pin)
 
-    argv = ["-g", gtf, "--fr", bam]
+    argv = ["-g", gtf, strand, bam]
     adev.pack_problems = recording_pack
     try:
         mcf = run_cli(prefix + "g_mcf", argv, {"STRAWB_DEVICE_MCF": "1"})
@@ -2430,37 +2442,34 @@ def mixed_fast_em(base, host_run, host_gtf):
 
 
 # --------------------------------------------------------------- phase 7
-# bench.py's primary realistic set at its full size (dataset_realistic)
-BIG_FRAGS = 5_000_000
+# bench.py's sets: dataset_realistic at half its size (phase 7; both sets
+# are made beside phases 2-6, which share the host with them) and
+# dataset_10m, the easy set, at its full size (phase 8)
+BIG_FRAGS = 2_500_000
+EASY_FRAGS = 5_000_000
 
 
-def start_big_set(n_frags):
-    """Starts generating the realistic set at `n_frags` fragments in a
+def start_big_set(shape, n_frags):
+    """Starts generating the set of `shape` at `n_frags` fragments in a
     process of its own (into a temporary directory, renamed when done), so
     that it runs beside phases 2-6; none when the set is already there.
     Returns the process (or None) and its log's path."""
-    d, bam, gtf = realistic_paths(n_frags)
-    logf = os.path.join(WORK, f"generate_{n_frags}.log")
+    from strawberry_tpu_torch.tools import common
+    d, bam, gtf, _strand = shape_paths(shape, n_frags)
+    logf = os.path.join(WORK, f"generate_{shape}_{n_frags}.log")
     if os.path.exists(bam) and os.path.exists(gtf):
         return None, logf
     os.makedirs(WORK, exist_ok=True)
     shutil.rmtree(d + ".partial", ignore_errors=True)
-    code = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
-            "from strawberry_tpu_torch.sim import make_dataset; "
-            "from strawberry_tpu_torch.tools.common import REALISTIC; "
-            "t0 = time.perf_counter(); "
-            f"make_dataset(sys.argv[2], n_frags={n_frags}, **REALISTIC); "
-            "print(f'{time.perf_counter() - t0:.1f} s')")
     with open(logf, "w") as f:
-        proc = subprocess.Popen([sys.executable, "-c", code, ROOT,
-                                 d + ".partial"], cwd=ROOT, stdout=f,
-                                stderr=subprocess.STDOUT)
+        proc, _what = common.start_generating(d + ".partial", shape,
+                                              n_frags, log=f)
     return proc, logf
 
 
-def finish_big_set(n_frags, gen):
+def finish_big_set(shape, n_frags, gen):
     """Waits for start_big_set's process and moves its set in place."""
-    d, bam, gtf = realistic_paths(n_frags)
+    d, bam, gtf, _strand = shape_paths(shape, n_frags)
     proc, logf = gen
     if proc is not None:
         t0 = time.perf_counter()
@@ -2471,41 +2480,46 @@ def finish_big_set(n_frags, gen):
                 + text[-3000:])
         shutil.rmtree(d, ignore_errors=True)
         os.rename(d + ".partial", d)
-        log(f"  generated {n_frags} fragments in {text.strip()} beside "
-            f"phases 2-6 (waited {time.perf_counter() - t0:.1f} s here)")
+        log(f"  {text.strip()} beside the phases before (waited "
+            f"{time.perf_counter() - t0:.1f} s here)")
     require(os.path.exists(bam) and os.path.exists(gtf),
-            f"no realistic set of {n_frags} fragments")
+            f"no {shape} set of {n_frags} fragments")
     return bam, gtf
 
 
-def big_phase(n_frags, dev, gen, e2e):
-    """Phase 7: the main path on bench.py's realistic set at its full size
-    (5M fragments), each run against its host twin: `-g -r` (the default),
-    `-g -r` with STRAWB_DEVICE_EM=1 (the default's body byte for byte,
-    every tier-fitting problem through the kernel), `-g -r --fast-em` at
-    the default bound (routing.FASTEM_AFTER: its route's launches, and the
-    default's body where it sent nothing to the card, else TPM p99 <=
-    1e-3), `--fast-em` with STRAWB_FASTEM_AFTER=0 (every tier-fitting
-    problem in f32; TPM p99 <= 1e-3), `-g -r` with STRAWB_DEVICE_PREP=all
-    (the default's body byte for byte), and `-g` with STRAWB_DEVICE_MCF=1
-    against its STRAWB_FORCE_HOST=1 twin (byte for byte). Prints the EM
-    tier counts and the MCF size classes on a line of their own. Then the
-    kernels on what this run made: the first bucket of every EM tier the
-    run filled (f64 and f32, as phase 3), the first prep chunk of 100
-    loci (and every chunk, array-equal), and every MCF problem in one
-    call, the largest call, and the problems of each size class above
-    the warp class (as phase 3c), each against its plain version and timed
-    with its bound. A tier or class the 1M run of phase 4 left empty is
-    named as reached for the first time."""
-    bam, gtf = finish_big_set(n_frags, gen)
-    tag = "%gM" % (n_frags / 1e6)
-    base = ["-g", gtf, "-r", "--fr", bam]
-    host = run_cli("big_g_r_host", base, {})
+def big_phase(shape, n_frags, dev, gen, e2e, low_mem=False):
+    """Phases 7 and 8: the main path on one of bench.py's sets at millions
+    of fragments, with the shape's strand, each run against its
+    host twin: `-g -r` (the default), `-g -r` with STRAWB_DEVICE_EM=1 (the
+    default's body byte for byte, every tier-fitting problem through the
+    kernel), `-g -r --fast-em` at the default bound (routing.FASTEM_AFTER:
+    its route's launches, and the default's body where it sent nothing to
+    the card, else TPM p99 <= 1e-3), `--fast-em` with STRAWB_FASTEM_AFTER=0
+    (every tier-fitting problem in f32; TPM p99 <= 1e-3), `-g -r` with
+    STRAWB_DEVICE_PREP=all (the default's body byte for byte), `-g` with
+    STRAWB_DEVICE_MCF=1 against its STRAWB_FORCE_HOST=1 twin (byte for
+    byte), and with `low_mem` `-g` (the default) against `-g --low-mem`
+    (byte for byte, no launch in either). Prints the EM tier counts and
+    the MCF size classes on a line of their own. Then the kernels on what
+    this run made: the first bucket of every EM tier the run filled (f64
+    and f32, as phase 3), the first prep chunk of 100 loci (on the easy
+    set, whose flushes of deep loci are halved to fit the prep tiers, the
+    first chunk; and every chunk, array-equal), and every MCF problem in
+    one call, the largest call, and the problems of each size class above
+    the warp class (as phase 3c), each against its plain version and
+    timed with its bound. A tier or class the 1M run of phase 4 left empty
+    is named as reached for the first time."""
+    bam, gtf = finish_big_set(shape, n_frags, gen)
+    strand = shape_paths(shape, n_frags)[3]
+    tag = "%s %gM" % (shape, n_frags / 1e6)
+    pre = "big_" if shape == "realistic" else f"{shape}_"
+    base = ["-g", gtf, "-r", strand, bam]
+    host = run_cli(pre + "g_r_host", base, {})
     require(host.d.n_device == 0 and host.d.n_host > 0,
             f"{tag} default run must solve every EM on the host")
     require_no_launches(host, f"{tag} default -g -r")
 
-    dev_em = run_cli("big_g_r_device_em", base, {"STRAWB_DEVICE_EM": "1"})
+    dev_em = run_cli(pre + "g_r_device_em", base, {"STRAWB_DEVICE_EM": "1"})
     n = dev_em.launches["em_bucket"]
     require(dev_em.d.n_device == dev_em.fit and n == dev_em.want > 0,
             f"{tag} STRAWB_DEVICE_EM=1: {dev_em.d.n_device} on the card of "
@@ -2518,7 +2532,7 @@ def big_phase(n_frags, dev, gen, e2e):
     log(f"  {tag} STRAWB_DEVICE_EM=1: GTF body byte-identical to the "
         "default's")
 
-    fk = run_cli("big_g_r_fast_em", base + ["--fast-em"], {})
+    fk = run_cli(pre + "g_r_fast_em", base + ["--fast-em"], {})
     require(fk.d.n_device == fk.fit
             and fk.launches["em_bucket"] == fk.want,
             f"{tag} --fast-em at the default bound: {fk.d.n_device} on the "
@@ -2531,7 +2545,7 @@ def big_phase(n_frags, dev, gen, e2e):
         fk_p99 = 0.0
     else:
         fk_p99 = tpm_p99(host.out, fk.out, f"{tag} --fast-em at the default")
-    f32 = run_cli("big_g_r_fast_em_f32", base + ["--fast-em"], F32)
+    f32 = run_cli(pre + "g_r_fast_em_f32", base + ["--fast-em"], F32)
     require(f32.d.n_device == f32.fit
             and f32.launches["em_bucket"] == f32.want > 0,
             f"{tag} --fast-em, STRAWB_FASTEM_AFTER=0: {f32.d.n_device} on the "
@@ -2543,8 +2557,20 @@ def big_phase(n_frags, dev, gen, e2e):
         f"{f32.d.n_device} on the card, TPM p99 {f32_p99:.3e}")
 
     preps, chunks, tables = prep_runs(base, host, modes=("all",),
-                                      prefix="big_")
-    mcfs, calls = mcf_runs(gtf, bam, None, prefix="big_")
+                                      prefix=pre)
+    walls = {}
+    if low_mem:
+        g_host = run_cli(pre + "g_host", ["-g", gtf, strand, bam], {})
+        require_no_launches(g_host, f"{tag} default -g")
+        lm = run_cli(pre + "g_low_mem", ["-g", gtf, strand, "--low-mem",
+                                         bam], {})
+        require_no_launches(lm, f"{tag} -g --low-mem")
+        require(body(lm.out) == body(g_host.out),
+                f"{tag} -g --low-mem: GTF body differs from the default's")
+        log(f"  {tag} -g --low-mem: GTF body byte-identical to the "
+            "default's")
+        walls.update(g_host=g_host.wall, g_low_mem=lm.wall)
+    mcfs, calls = mcf_runs(gtf, bam, None, prefix=pre, strand=strand)
     fs = mcfs["g_mcf"].sample.flow_stats
     counts = {"em_tiers": dev_em.tiers, "em_host_no_tier":
               dev_em.d.n_host, "mcf_classes": {
@@ -2558,11 +2584,12 @@ def big_phase(n_frags, dev, gen, e2e):
              "mcf_classes": [c for c, k in counts["mcf_classes"].items()
                              if k and not e2e["flow_stats"]["g_mcf"].get(
                                  "device_" + c)]}
-    log(f"  reached for the first time at {n_frags} fragments: {first}")
+    log(f"  reached for the first time at {tag}: {first}")
     buckets = {"x".join(map(str, b[0].shape)):
                compare_bucket(dev, b, f"{tag} main-path tier {t}")
                for t, b in sorted(dev_em.d.buckets.items())}
-    prep = main_path_prep(dev, chunks, tables, f"{tag} main-path prep chunk")
+    prep = main_path_prep(dev, chunks, tables, f"{tag} main-path prep chunk",
+                          min_loci=100 if shape == "realistic" else 1)
     mcf = main_path_mcf(dev, calls)
     every = [p for c in calls for p in c]
     from strawberry_tpu_torch.assembly.cuda_mcf import CLASSES
@@ -2573,12 +2600,12 @@ def big_phase(n_frags, dev, gen, e2e):
             mcf["class_" + name] = compare_ragged(
                 dev, of, f"{tag} main-path MCF, the {name} class")
         lo = top
-    return {"n_frags": n_frags, "counts": counts, "first_reached": first,
-            "walls_s": {"g_r_host": host.wall, "g_r_device_em": dev_em.wall,
-                        "g_r_fast_em": fk.wall, "g_r_fast_em_f32": f32.wall,
-                        "g_r_prep_all": preps["all"].wall,
-                        "g_mcf": mcfs["g_mcf"].wall,
-                        "g_mcf_force_host": mcfs["g_mcf_force_host"].wall},
+    walls.update(g_r_host=host.wall, g_r_device_em=dev_em.wall,
+                 g_r_fast_em=fk.wall, g_r_fast_em_f32=f32.wall,
+                 g_r_prep_all=preps["all"].wall, g_mcf=mcfs["g_mcf"].wall,
+                 g_mcf_force_host=mcfs["g_mcf_force_host"].wall)
+    return {"shape": shape, "n_frags": n_frags, "counts": counts,
+            "first_reached": first, "walls_s": walls,
             "launches": {"em_bucket_f64": n,
                          "em_bucket_fast_em": fk.launches["em_bucket"],
                          "em_bucket_f32": f32.launches["em_bucket"],
@@ -2595,6 +2622,8 @@ def main():
     ap.add_argument("--n-frags", type=int, default=1_000_000)
     ap.add_argument("--big-frags", type=int, default=BIG_FRAGS,
                     help="fragments of phase 7's realistic set")
+    ap.add_argument("--easy-frags", type=int, default=EASY_FRAGS,
+                    help="fragments of phase 8's easy set")
     args = ap.parse_args()
 
     import torch
@@ -2605,18 +2634,21 @@ def main():
     card = card_line()
     log(f"phase 1: {card}")
     sys.path.insert(0, ROOT)
-    gen = start_big_set(args.big_frags)
+    gens = {}
     try:
-        return phases(args, card, t_start, gen)
+        gens["realistic"] = start_big_set("realistic", args.big_frags)
+        gens["easy"] = start_big_set("easy", args.easy_frags)
+        return phases(args, card, t_start, gens)
     finally:
-        if gen[0] is not None and gen[0].poll() is None:
-            gen[0].kill()
-            gen[0].wait()
+        for proc, _logf in gens.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
-def phases(args, card, t_start, gen):
-    """Phases 2-7 and the two last lines; phase 7's set is generated by
-    `gen` (start_big_set) meanwhile."""
+def phases(args, card, t_start, gens):
+    """Phases 2-8 and the two last lines; the sets of phases 7 and 8 are
+    generated by `gens` (start_big_set, by shape) meanwhile."""
     import torch
     dev = torch.device("cuda")
 
@@ -2689,10 +2721,18 @@ def phases(args, card, t_start, gen):
     routes = routing_phase(args.n_frags, e2e)
     log("  routing: " + json.dumps(routes))
 
-    log(f"phase 7: end to end at bench.py's full realistic size, "
+    log(f"phase 7: end to end on bench.py's realistic set, "
         f"{args.big_frags} fragments")
-    big = big_phase(args.big_frags, dev, gen, e2e)
+    big = big_phase("realistic", args.big_frags, dev, gens["realistic"],
+                    e2e)
     log("  " + json.dumps({k: v for k, v in big.items()
+                           if not k.startswith("main_path")}))
+
+    log(f"phase 8: end to end on bench.py's easy set (--rf, no XS tag), "
+        f"{args.easy_frags} fragments")
+    easy = big_phase("easy", args.easy_frags, dev, gens["easy"], e2e,
+                     low_mem=True)
+    log("  " + json.dumps({k: v for k, v in easy.items()
                            if not k.startswith("main_path")}))
 
     src = "strawberry_tpu_torch/csrc/em_bucket.cu"
@@ -2713,8 +2753,10 @@ def phases(args, card, t_start, gen):
          "launches": e2e["launches"][f"em_bucket_{dt}"],
          **rep[dt], "main_path_buckets": {
              t: r[dt] for t, r in e2e["main_path_buckets"].items()},
-         "main_path_buckets_5m": {
-             t: r[dt] for t, r in big["main_path_buckets"].items()}}
+         "main_path_buckets_realistic": {
+             t: r[dt] for t, r in big["main_path_buckets"].items()},
+         "main_path_buckets_easy": {
+             t: r[dt] for t, r in easy["main_path_buckets"].items()}}
         for dt in ("f32", "f64")] + [
         {"name": "quant_prep", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/quant_prep.cu",
@@ -2724,7 +2766,8 @@ def phases(args, card, t_start, gen):
          "launches": e2e["launches"]["quant_prep"], **prep,
          "ptxas": ptxas,
          "main_path_chunk": e2e["main_path_prep_chunk"],
-         "main_path_chunk_5m": big["main_path_prep_chunk"]},
+         "main_path_chunk_realistic": big["main_path_prep_chunk"],
+         "main_path_chunk_easy": easy["main_path_prep_chunk"]},
         {"name": "mcf_bucket", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/mcf_bucket.cu",
          "replaces": "strawberry_tpu/assembly/device.py:29",
@@ -2732,7 +2775,8 @@ def phases(args, card, t_start, gen):
                       "mincostflow.solve_dense; two runs identical",
          "launches": e2e["launches"]["mcf_bucket"], **mcf,
          "main_path": e2e["main_path_mcf"],
-         "main_path_5m": big["main_path_mcf"]},
+         "main_path_realistic": big["main_path_mcf"],
+         "main_path_easy": easy["main_path_mcf"]},
         {"name": "shard_colsum", "route": "cuda",
          "source": "strawberry_tpu_torch/csrc/shard_reduce.cu",
          "replaces": "strawberry_tpu/parallel/collectives.py:26",

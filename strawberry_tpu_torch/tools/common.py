@@ -1,6 +1,6 @@
 """What the crossover tools share: the command line, the card's name and
-power limit, the realistic data set, CLI runs in fresh processes, and the
-one JSON line each tool prints."""
+power limit, the named shapes of the data sets (each with its strand),
+CLI runs in fresh processes, and the one JSON line each tool prints."""
 from __future__ import annotations
 
 import argparse
@@ -14,14 +14,11 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 OUT_DIR = os.path.join(ROOT, "build", "strawberry_tpu_torch", "crossover")
-
-# the realistic shape and the tests' sets are fr-stranded
-STRAND = "--fr"
 
 # every variable that moves work between the host and the card: a run of a
 # tool sets the ones its mode names and clears the others
@@ -40,27 +37,38 @@ def parser(description: str, data: bool = False,
                    help=f"also write the JSON line to {OUT_DIR}/<tool>.json")
     if data:
         p.add_argument("--n-frags", type=int, default=n_frags,
-                       help="fragments of the realistic set")
+                       help="fragments of a set the tool generates")
+        p.add_argument("--shape", choices=sorted(SHAPES), default=None,
+                       help="the set's shape (SHAPES), which gives its "
+                            "strand; generated sets record theirs beside "
+                            "them (default for a set generated here: "
+                            "realistic)")
         p.add_argument("--data", default=None,
                        help="a sim.make_dataset directory (sample_01."
-                            "sorted.bam, annotation.gtf); generated there "
-                            "on the realistic shape when it holds none "
-                            "(default: realistic_<n-frags> under the output "
+                            "sorted.bam, annotation.gtf) whose shape is "
+                            "recorded beside it or given by --shape; "
+                            "generated there on --shape when it holds none "
+                            "(default: <shape>_<n-frags> under the output "
                             "directory)")
     return p
 
 
-def setup(args):
+def setup(args) -> None:
     """Route the port to the asked device; a GPU run without a GPU fails
-    (no tool falls back to the CPU). Returns the torch.device."""
-    import torch
+    (no tool falls back to the CPU). CUDA is asked for in a process of its
+    own, so this one needs no torch: a CLI process it starts takes this
+    process's peak resident set for the floor of its own (peak_rss_mb):
+    4,623 MB on an H100 host where the tool had imported torch and asked
+    for CUDA (PERF.md section 6)."""
     os.environ["STRAWB_PLATFORM"] = args.device
     for k in ROUTING_VARS:
         os.environ.pop(k, None)
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if args.device == "cuda" and subprocess.run(
+            [sys.executable, "-c", "import sys, torch; "
+             "sys.exit(0 if torch.cuda.is_available() else 1)"],
+            cwd=ROOT).returncode != 0:
         raise SystemExit(f"{sys.argv[0]}: CUDA is not available; "
                          "--device cpu runs the plain versions")
-    return torch.device(args.device)
 
 
 def card(device: str) -> str:
@@ -74,15 +82,16 @@ def card(device: str) -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def emit(tool: str, args, result: dict, out_dir: str = OUT_DIR) -> dict:
+def emit(tool: str, args, result: dict, out_dir: str = OUT_DIR,
+         stem: Optional[str] = None) -> dict:
     """Print the tool's one JSON line, the card first; with --out also
-    write it to <out_dir>/<tool>.json."""
+    write it to <out_dir>/<stem, default the tool>.json."""
     line = {"card": card(args.device), "tool": tool, **result}
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, tool + ".json"), "w") as f:
+        with open(os.path.join(out_dir, (stem or tool) + ".json"), "w") as f:
             f.write(text + "\n")
     return line
 
@@ -93,11 +102,26 @@ def emit(tool: str, args, result: dict, out_dir: str = OUT_DIR) -> dict:
 REALISTIC = dict(seed=303, n_chroms=24, chrom_len=16_000_000,
                  max_isoforms=20, exon_range=(2, 9), abundance="lognormal",
                  protocol="fr", indel_rate=0.02, clip_rate=0.03)
+# bench.py's dataset_10m (tools/bench_10m.py): seed 101, 16 chromosomes of
+# 2 Mb, up to 8 isoforms, rf, no XS tag, indel 0.02, clip 0.03
+EASY = dict(seed=101, n_chroms=16, chrom_len=2_000_000, max_isoforms=8,
+            protocol="rf", with_xs=False, indel_rate=0.02, clip_rate=0.03)
+# tools/bench_lowmem_scaling.py's dataset_deep: the easy set's reads on
+# one chromosome of 32 Mb (seed 111)
+DEEP = dict(EASY, seed=111, n_chroms=1, chrom_len=32_000_000)
+# the tests' sets: sim.make_dataset's defaults at seed 9 (XS tags)
+SMALL = dict(seed=9)
+
+# shape: (sim.make_dataset's arguments less n_frags, the CLI's strand flag)
+SHAPES = {"realistic": (REALISTIC, "--fr"), "easy": (EASY, "--rf"),
+          "deep": (DEEP, "--rf"), "small": (SMALL, "--fr")}
+# the record a generated set keeps beside it
+SHAPE_FILE = "shape.json"
 
 
-def realistic_dir(n_frags: int) -> str:
-    """Where the realistic set at `n_frags` fragments is generated."""
-    return os.path.join(OUT_DIR, f"realistic_{n_frags}")
+def set_dir(shape: str, n_frags: int, root: str = OUT_DIR) -> str:
+    """Where the set of `shape` at `n_frags` fragments is generated."""
+    return os.path.join(root, f"{shape}_{n_frags}")
 
 
 def set_paths(d: str) -> Tuple[str, str]:
@@ -106,27 +130,99 @@ def set_paths(d: str) -> Tuple[str, str]:
             os.path.join(d, "annotation.gtf"))
 
 
-def dataset(args) -> Tuple[str, str]:
-    """(bam, gtf) of --data, generated on the realistic shape (REALISTIC)
-    at --n-frags when the directory holds none, in a process of its own:
-    the generator's peak resident set (14 GB at 5M fragments) stays out
-    of this process and of the runs it starts (peak_rss_mb)."""
-    d = args.data or realistic_dir(args.n_frags)
+def generate(d: str, shape: str, n_frags: int) -> None:
+    """Make the set of `shape` at `n_frags` fragments in `d` and record its
+    shape beside it (last: a record means a whole set)."""
+    from ..sim import make_dataset
+    kwargs, strand = SHAPES[shape]
+    make_dataset(d, n_frags=n_frags, **kwargs)
+    with open(os.path.join(d, SHAPE_FILE), "w") as f:
+        json.dump({"shape": shape, "n_frags": n_frags, "strand": strand,
+                   "make_dataset": kwargs}, f)
+
+
+def recorded_shape(d: str) -> Optional[dict]:
+    """The shape record of the set in `d`, or None."""
+    path = os.path.join(d, SHAPE_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+class DataSet(NamedTuple):
+    dir: str
+    bam: str
+    gtf: str
+    shape: str
+    strand: str
+    n_frags: Optional[int]   # None: a set given without a record
+
+
+def resolve(d: str, shape: Optional[str], n_frags: int,
+            given: bool) -> DataSet:
+    """The set in `d` with its shape: the recorded one, which a `shape`
+    given must equal; for a set without a record the `shape` given, and
+    none given (`given`: `d` came from the caller) is refused, since a
+    strand is never guessed. A directory without a set gets `shape`
+    (default realistic) at `n_frags`, unmade yet."""
     bam, gtf = set_paths(d)
-    if not (os.path.exists(bam) and os.path.exists(gtf)):
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c", _GENERATE, d,
-                        str(args.n_frags)], cwd=ROOT, check=True)
-        print(f"generated {args.n_frags} fragments in "
-              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    return bam, gtf
+    have = os.path.exists(bam) and os.path.exists(gtf)
+    rec = recorded_shape(d) if have else None
+    if rec is not None:
+        if shape is not None and shape != rec["shape"]:
+            raise SystemExit(f"{d}: a set of shape {rec['shape']!r}, not "
+                             f"{shape!r}")
+        shape, n_frags = rec["shape"], rec["n_frags"]
+    elif have and given:
+        if shape is None:
+            raise SystemExit(f"--data {d}: no shape recorded beside the set "
+                             f"({SHAPE_FILE}); give --shape, since the "
+                             "strand follows from it")
+        n_frags = None
+    shape = shape or "realistic"
+    return DataSet(d, bam, gtf, shape, SHAPES[shape][1], n_frags)
+
+
+def dataset(args) -> DataSet:
+    """--data (default: the directory of --shape at --n-frags) and its
+    shape (resolve), generated on that shape at --n-frags when the
+    directory holds no set, in a process of its own: the generator's peak
+    resident set (14 GB at 5M realistic fragments) stays out of this
+    process and of the runs it starts (peak_rss_mb)."""
+    shape = getattr(args, "shape", None)
+    d = args.data or set_dir(shape or "realistic", args.n_frags)
+    ds = resolve(d, shape, args.n_frags, given=args.data is not None)
+    if not (os.path.exists(ds.bam) and os.path.exists(ds.gtf)):
+        wait_generated(start_generating(d, ds.shape, ds.n_frags))
+    return ds
+
+
+def start_generating(d: str, shape: str, n_frags: int,
+                     log=None) -> Tuple[subprocess.Popen, str]:
+    """Start generate() in a process of its own, which prints its seconds
+    to stderr (or `log`); wait_generated() waits for it. Several run side
+    by side."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _GENERATE, d, shape, str(n_frags)],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT if log else None)
+    return proc, f"{shape} at {n_frags} fragments"
+
+
+def wait_generated(started) -> None:
+    """Wait for a start_generating() process; raise if it failed."""
+    proc, what = started
+    if proc.wait() != 0:
+        raise RuntimeError(f"generating {what}: exit code {proc.returncode}")
 
 
 _GENERATE = """
-import sys
-from strawberry_tpu_torch.sim import make_dataset
-from strawberry_tpu_torch.tools.common import REALISTIC
-make_dataset(sys.argv[1], n_frags=int(sys.argv[2]), **REALISTIC)
+import sys, time
+from strawberry_tpu_torch.tools.common import generate
+t0 = time.perf_counter()
+generate(sys.argv[1], sys.argv[2], int(sys.argv[3]))
+print(f"generated {sys.argv[2]} at {sys.argv[3]} fragments in "
+      f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 """
 
 
@@ -229,8 +325,11 @@ WRAPPERS = {"em_bucket": ("strawberry_tpu_torch.quant.cuda_em",
 
 # CLI runs in this fresh process, one after another, with the pipeline's
 # phase timer on: per run its exit code, wall (to the device
-# synchronized), EM / prep / flow splits, phase seconds, the process's peak
-# RSS so far (peak_rss_mb), and each kernel's launches (and each
+# synchronized), the reads it took (the hit table's length, as the JAX
+# repo's tools/bench_10m.py counts them), EM / prep / flow splits, phase
+# seconds, the process's peak RSS before its first run and so far
+# (peak_rss_mb), whether CUDA was initialized, and each kernel's
+# launches (and each
 # __global__ function's), as one JSON list on the last line. The wrappers
 # are imported after a run, never before the first: that would take
 # `import torch` out of its wall. With profile=1 the first run is under
@@ -247,7 +346,7 @@ argvs, profile = json.loads(sys.argv[1]), sys.argv[2] == "1"
 def wrappers():
     return {k: getattr(importlib.import_module(m), f)
             for k, (m, f) in WRAPPERS.items()}
-out = []
+out, start_rss = [], peak_rss_mb()
 for i, argv in enumerate(argvs):
     samples = []
     cli.run_driver = lambda *a, **k: samples.append(run(*a, **k)) \\
@@ -272,7 +371,9 @@ for i, argv in enumerate(argvs):
     ws = wrappers()
     fl = {fn: n for w in ws.values() for fn, n in w.function_launches.items()}
     r = {"rc": rc, "wall_s": wall,
-         "max_rss_mb": peak_rss_mb(),
+         "start_rss_mb": start_rss, "max_rss_mb": peak_rss_mb(),
+         "cuda_initialized": torch.cuda.is_initialized(),
+         "reads": len(s.table) if s is not None else None,
          "em_stats": getattr(s, "em_stats", {}),
          "prep_stats": getattr(s, "prep_stats", None) or {},
          "flow_stats": getattr(s, "flow_stats", {}),
@@ -331,7 +432,9 @@ def cli_walls(modes: Dict[str, Tuple[List[str], Dict[str, str]]],
     `kernel_events` by __global__ function), then `reps` timed runs each,
     in turns (the order rotates each round, so no mode runs in a block).
     Per mode: the walls, their median, best and spread (max - min), the
-    last run's splits, launches and phase seconds, each run's peak RSS,
+    last run's reads, splits, launches and phase seconds, each process's
+    peak RSS before its first run (`start_rss_mb`), after its timed run
+    (`first_run_rss_mb`) and after its last (`max_rss_mb`),
     `locus_context` and `host_em` seconds, the sha256 of its GTF body
     (`body_sha256`, None when two runs differ), the path of its first
     run's GTF (`gtf`, kept; every later one is removed once read), and
@@ -341,8 +444,9 @@ def cli_walls(modes: Dict[str, Tuple[List[str], Dict[str, str]]],
     what a fresh process pays that a later run in the same process does
     not."""
     names = list(modes)
-    out = {n: {"walls_s": [], "max_rss_mb": [], "locus_context_s": [],
-               "host_em_s": []} for n in names}
+    out = {n: {"walls_s": [], "start_rss_mb": [], "first_run_rss_mb": [],
+               "max_rss_mb": [], "locus_context_s": [], "host_em_s": []}
+           for n in names}
     if warm:
         for n in names:
             out[n]["warm_walls_s"] = []
@@ -374,12 +478,14 @@ def cli_walls(modes: Dict[str, Tuple[List[str], Dict[str, str]]],
                         m.setdefault("profiled", {})[key] = res[0][key]
                 continue
             m["walls_s"].append(res[0]["wall_s"])
+            m["start_rss_mb"].append(res[0]["start_rss_mb"])
+            m["first_run_rss_mb"].append(res[0]["max_rss_mb"])
             m["max_rss_mb"].append(res[-1]["max_rss_mb"])
             m["locus_context_s"].append(
                 res[0]["phases_s"].get("locus_context", 0.0))
             m["host_em_s"].append(res[0]["phases_s"].get("host_em", 0.0))
-            for key in ("em_stats", "prep_stats", "flow_stats", "launches",
-                        "function_launches", "phases_s"):
+            for key in ("reads", "em_stats", "prep_stats", "flow_stats",
+                        "launches", "function_launches", "phases_s"):
                 m[key] = res[0][key]
             if warm:
                 m["warm_walls_s"].append(res[1]["wall_s"])

@@ -211,7 +211,9 @@ def rates(rng):
 def main(argv=None):
     p = common.parser(__doc__.split("\n")[0])
     args = p.parse_args(argv)
-    dev = common.setup(args)
+    common.setup(args)
+    import torch
+    dev = torch.device(args.device)
     rng = np.random.default_rng(0)
     result = {"device": args.device,
               "f64_bit_mismatches_per_2^20": elementwise(dev, rng),

@@ -2,7 +2,8 @@
 package's tools/bench_em_crossover.py.
 
     python -m strawberry_tpu_torch.tools.em_crossover [--device cpu]
-        [--n-frags N | --data DIR] [--reps 3] [--walls 3 [--warm]] [--out]
+        [--shape realistic|easy|deep|small] [--n-frags N | --data DIR]
+        [--reps 3] [--walls 3 [--warm]] [--out]
 
 1. Capture. One `-g -r` run of the port hands every locus to the EM
    dispatcher the way the device route does (with the host route on, the
@@ -226,16 +227,18 @@ def main(argv=None):
                    help="with --walls: each timed process runs its mode a "
                         "second time")
     args = p.parse_args(argv)
-    dev = common.setup(args)
-    bam, gtf = common.dataset(args)
+    common.setup(args)
+    import torch
+    dev = torch.device(args.device)
+    ds = common.dataset(args)
     with common.scratch_dir() as work:
-        result = measure(args, dev, bam, gtf, work)
+        result = measure(args, dev, ds, work)
     common.emit("em_crossover", args, result)
     return 0
 
 
-def measure(args, dev, bam, gtf, work):
-    problems, counts = capture(bam, gtf, common.STRAND, work)
+def measure(args, dev, ds, work):
+    problems, counts = capture(ds.bam, ds.gtf, ds.strand, work)
     if not problems:
         raise SystemExit("em_crossover: the run made no EM problem")
     n = len(problems)
@@ -259,7 +262,8 @@ def measure(args, dev, bam, gtf, work):
         prefixes["all" if k == n else str(k)] = dict(k=k, **row)
 
     result = {
-        "device": args.device, "n_problems": n, "capture": counts,
+        "device": args.device, "shape": ds.shape, "strand": ds.strand,
+        "n_frags": ds.n_frags, "n_problems": n, "capture": counts,
         **shapes(problems),
         "device_solved": {name: d.n_device for name, d in made.items()},
         **{f"{name}_{what}": v for name, (bits, rel, none) in exact.items()
@@ -272,7 +276,7 @@ def measure(args, dev, bam, gtf, work):
                 "build to finish(); seconds on the host's clock, the device "
                 "synchronized"}
     if args.walls:
-        base = ["-g", gtf, "-r", common.STRAND, bam]
+        base = ["-g", ds.gtf, "-r", ds.strand, ds.bam]
         walls = common.cli_walls(
             {"default": ([], {}),
              "device_em": ([], {"STRAWB_DEVICE_EM": "1"}),

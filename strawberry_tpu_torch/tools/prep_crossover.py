@@ -2,14 +2,15 @@
 package's bench.py prep modes (benchmarks/prep_crossover.json there).
 
     python -m strawberry_tpu_torch.tools.prep_crossover [--device cpu]
-        [--n-frags N | --data DIR] [--reps 3] [--granules 2048,...] [--out]
+        [--shape realistic|easy|deep|small] [--n-frags N | --data DIR]
+        [--reps 3] [--granules 2048,...] [--out]
 
-`-g -r` on the realistic set in fresh processes, --reps timed runs a mode
-after one untimed, in turns: STRAWB_DEVICE_PREP=0 ("off": the prep fused
-into the native clustering workers), =all (every eligible locus through
-the prep kernel) and =budget at each granule of --granules (default 2048,
-8192, 32768 and 131072 (hit x isoform) pairs: one granule in flight, carved
-only when the card is idle). Per mode: the walls (median, best, spread),
+`-g -r` on the set (with its shape's strand) in fresh processes, --reps
+timed runs a mode after one untimed, in turns: STRAWB_DEVICE_PREP=0
+("off": the prep fused into the native clustering workers), =all (every
+eligible locus through the prep kernel) and =budget at each granule of
+--granules (default 2048, 8192, 32768 and 131072 (hit x isoform) pairs:
+one granule in flight, carved only when the card is idle). Per mode: the walls (median, best, spread),
 the last run's prep_stats, each run's `locus_context` seconds (the main
 thread's share of the prep), and whether every body equals the "off"
 run's.
@@ -35,7 +36,7 @@ def main(argv=None):
     p.add_argument("--granules", default=",".join(map(str, GRANULES)))
     args = p.parse_args(argv)
     common.setup(args)
-    bam, gtf = common.dataset(args)
+    ds = common.dataset(args)
     granules = [int(x) for x in args.granules.split(",")]
     modes = {"off": ([], {"STRAWB_DEVICE_PREP": "0"}),
              "all": ([], {"STRAWB_DEVICE_PREP": "all"})}
@@ -44,7 +45,7 @@ def main(argv=None):
                                      "STRAWB_PREP_BUDGET": str(g)})
     with common.scratch_dir() as work:
         walls = common.cli_walls(
-            modes, ["-g", gtf, "-r", common.STRAND, bam], args.reps,
+            modes, ["-g", ds.gtf, "-r", ds.strand, ds.bam], args.reps,
             args.device, reference="off", runs_dir=work)
     budgets = {g: walls[f"budget_{g}"] for g in granules}
     granule = min(budgets, key=lambda g: budgets[g]["median_s"])
@@ -56,7 +57,8 @@ def main(argv=None):
     auto = min(winners, key=lambda m: walls[m]["median_s"]) \
         if winners else "off"
     common.emit("prep_crossover", args, {
-        "device": args.device, "reps": args.reps, "modes": walls,
+        "device": args.device, "shape": ds.shape, "strand": ds.strand,
+        "n_frags": ds.n_frags, "reps": args.reps, "modes": walls,
         "auto_rule": auto.split("_")[0], "granule_rule": granule,
         "note": "walls of cli.main on the host's clock to the device "
                 "synchronized, each in a fresh process with the phase "

@@ -1,23 +1,30 @@
-"""The port on bench.py's primary realistic set at full size: the
-counterpart of the JAX package's tools/bench_realistic.py, with the port's
-own host route in place of the C++ reference (the card's machine has
-neither JAX nor the reference binary).
+"""The port on bench.py's sets at full size: the counterpart of the JAX
+package's tools/bench_realistic.py (--shape realistic, the default) and
+tools/bench_10m.py (--shape easy), with the port's own host route in
+place of the C++ reference (the card's machine has neither JAX nor the
+reference binary).
 
     python -m strawberry_tpu_torch.tools.realistic [--device cpu]
-        [--n-frags 5000000 | --data DIR] [--reps 3] [--warmup 1] [--out]
+        [--shape realistic|easy] [--n-frags 5000000 | --data DIR]
+        [--reps 3] [--warmup 1] [--out]
 
 The set is bench.py's dataset_realistic (seed 303, 24 x 16 Mb, up to 20
-isoforms, exons 2-9, lognormal, fr, indel 0.02, clip 0.03) at --n-frags
-fragments, generated once (tools/common.py::dataset). Each mode runs in
-fresh processes (tools/common.py::cli_walls): --warmup untimed runs, under
-torch.profiler on the card (each __global__ function's kernel events and
-device milliseconds), then --reps timed runs in turns, each process
-running its mode a second time (the warm wall). Per mode: the cold walls
-(median, best, spread), the warm walls, the peak RSS, the EM split with
-the problems each tier carried to the card, the prep split, the flow
-split with the problems per MCF size class and those above 256 nodes
-(on the host), the launches per kernel and per __global__ function, and
-the check against its host twin (PERF.md section 2):
+isoforms, exons 2-9, lognormal, fr, indel 0.02, clip 0.03) or its
+dataset_10m (--shape easy: seed 101, 16 x 2 Mb, up to 8 isoforms, rf, no
+XS tag, indel 0.02, clip 0.03) at --n-frags fragments, generated once
+(tools/common.py::dataset); every mode passes the shape's strand. Each
+mode runs in fresh processes (tools/common.py::cli_walls): --warmup
+untimed runs, under torch.profiler on the card (each __global__
+function's kernel events and device milliseconds), then --reps timed runs
+in turns, each process running its mode a second time (the warm wall).
+Per mode: the cold walls (median, best, spread), the warm walls, the
+reads and reads/s of the cold and the warm median against the reference's
+83,000 reads/s (bench.py's baseline, as tools/bench_10m.py reports it),
+the peak RSS after the first run of each process and after both, the EM
+split with the problems each tier carried to the card, the prep split,
+the flow split with the problems per MCF size class and those above 256
+nodes (on the host), the launches per kernel and per __global__
+function, and the check against its host twin (PERF.md section 2):
   g_r_default        -g -r, the default (every EM on the host)
   g_r_fast_em        -g -r --fast-em at the default bound (routing.py):
                      the default's body where no problem went to the
@@ -29,12 +36,14 @@ the check against its host twin (PERF.md section 2):
   g_r_device_em      STRAWB_DEVICE_EM=1: the default's body byte for byte
   g_r_prep_all       STRAWB_DEVICE_PREP=all: the default's body
   g_default          -g, the default
+  g_low_mem          -g --low-mem: g_default's body byte for byte
   g_mcf              -g with STRAWB_DEVICE_MCF=1: g_mcf_force_host's body
   g_mcf_force_host   the same with STRAWB_FORCE_HOST=1 (every flow on
                      mincostflow.solve_dense)
 Prints one JSON line, the card first (with --out also written to
-build/strawberry_tpu_torch/realistic.json), and exits 1 when a mode
-differs from its twin. A tool, not a benchmark: no speed is judged.
+build/strawberry_tpu_torch/realistic.json, or realistic_<shape>.json for
+another shape), and exits 1 when a mode differs from its twin. A tool,
+not a benchmark: no speed is judged.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ import sys
 from . import common
 
 MCF = {"STRAWB_DEVICE_MCF": "1"}
+# the reference's published single-thread throughput (bench.py:5-7)
+BASELINE_READS_PER_S = 83_000.0
 # name: (the mode's argv before the BAM, its environment, its host twin,
 # the rule it is held to: "bytes", "tpm" or "fast_em")
 MODES = {
@@ -56,6 +67,7 @@ MODES = {
     "g_r_prep_all": (["-r"], {"STRAWB_DEVICE_PREP": "all"}, "g_r_default",
                      "bytes"),
     "g_default": ([], {}, None, None),
+    "g_low_mem": (["--low-mem"], {}, "g_default", "bytes"),
     "g_mcf": ([], MCF, "g_mcf_force_host", "bytes"),
     "g_mcf_force_host": ([], {**MCF, "STRAWB_FORCE_HOST": "1"}, None, None),
 }
@@ -79,12 +91,19 @@ def twin_check(name, walls):
 
 
 def summary(m):
-    """What the JSON line keeps of a mode's cli_walls record."""
+    """What the JSON line keeps of a mode's cli_walls record, with the
+    reads/s of its cold and warm medians against the baseline."""
     keep = ("walls_s", "median_s", "best_s", "spread_s", "warm_walls_s",
-            "warm_median_s", "max_rss_mb", "em_stats", "prep_stats",
-            "flow_stats", "launches", "function_launches", "profiled",
-            "phases_s", "warm_phases_s", "body_sha256")
-    return {k: m[k] for k in keep if k in m}
+            "warm_median_s", "reads", "start_rss_mb", "first_run_rss_mb",
+            "max_rss_mb",
+            "em_stats", "prep_stats", "flow_stats", "launches",
+            "function_launches", "profiled", "phases_s", "warm_phases_s",
+            "body_sha256")
+    out = {k: m[k] for k in keep if k in m}
+    for pre, wall in (("", m["median_s"]), ("warm_", m["warm_median_s"])):
+        out[pre + "reads_per_s"] = m["reads"] / wall
+        out[pre + "vs_baseline"] = m["reads"] / wall / BASELINE_READS_PER_S
+    return out
 
 
 def main(argv=None):
@@ -99,19 +118,20 @@ def main(argv=None):
     if args.reps < 1:
         p.error("--reps must be at least 1")
     common.setup(args)
-    bam, gtf = common.dataset(args)
+    ds = common.dataset(args)
     from .. import routing
-    modes = {n: (["-g", gtf, *argv_, common.STRAND], env)
+    modes = {n: (["-g", ds.gtf, *argv_, ds.strand], env)
              for n, (argv_, env, _twin, _rule) in MODES.items()}
     with common.scratch_dir() as work:
-        walls = common.cli_walls(modes, [bam], args.reps, args.device,
+        walls = common.cli_walls(modes, [ds.bam], args.reps, args.device,
                                  reference=None, runs_dir=work, warm=True,
                                  warmup=args.warmup, profile=True)
         twins = {n: twin_check(n, walls) for n in modes if MODES[n][2]}
     result = {
-        "device": args.device, "n_frags": args.n_frags,
-        "data": os.path.abspath(os.path.dirname(bam)),
+        "device": args.device, "shape": ds.shape, "strand": ds.strand,
+        "n_frags": ds.n_frags, "data": os.path.abspath(ds.dir),
         "reps": args.reps, "warmup": args.warmup,
+        "baseline_reads_per_s": BASELINE_READS_PER_S,
         "routing": {k: getattr(routing, k) for k in (
             "DEVICE_EM", "FASTEM_AFTER", "PREP", "PREP_GRANULE",
             "MCF_MIN_NODES")},
@@ -121,12 +141,16 @@ def main(argv=None):
         "note": "walls of cli.main on the host's clock to the device "
                 "synchronized, each cold run in a fresh process with the "
                 "phase timer on, the warm run second in the same process; "
-                "max_rss_mb is the process's own peak after its last run "
+                "reads_per_s: reads over the median wall; "
+                "start_rss_mb, first_run_rss_mb, max_rss_mb: the process's "
+                "own peak before its cold run, after it and after both "
                 "(common.peak_rss_mb); "
                 "profiled: the untimed first process under torch.profiler "
                 "(device activity only; on the card)"}
     common.emit("realistic", args, result,
-                out_dir=os.path.dirname(common.OUT_DIR))
+                out_dir=os.path.dirname(common.OUT_DIR),
+                stem="realistic" if ds.shape == "realistic"
+                else f"realistic_{ds.shape}")
     return 0 if result["twins_ok"] else 1
 
 

@@ -49,8 +49,8 @@ def run_tool(tmp, *argv):
 def line(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("realistic")
     make_dataset(str(tmp / "data"), seed=9, n_frags=3000)
-    proc, pids = run_tool(tmp, "--data", str(tmp / "data"), "--reps", "1",
-                          "--warmup", "0")
+    proc, pids = run_tool(tmp, "--data", str(tmp / "data"), "--shape",
+                          "small", "--reps", "1", "--warmup", "0")
     assert proc.returncode == 0, proc.stderr[-4000:]
     text = proc.stdout.strip().splitlines()[-1]
     assert text.startswith('{"card": "cpu", "tool": "realistic"')
@@ -194,10 +194,10 @@ def test_dataset_is_made_in_a_process_of_its_own(tmp_path, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("make_dataset ran in the calling process")
     monkeypatch.setattr(sim, "make_dataset", refuse)
-    bam, gtf = common.dataset(SimpleNamespace(data=str(tmp_path / "d"),
-                                              n_frags=500))
-    assert os.path.getsize(bam) > 0
-    with open(gtf) as f:
+    ds = common.dataset(SimpleNamespace(data=str(tmp_path / "d"),
+                                        n_frags=500))
+    assert os.path.getsize(ds.bam) > 0
+    with open(ds.gtf) as f:
         chroms = {line.split("\t", 1)[0] for line in f
                   if not line.startswith("#")}
     assert len(chroms) == common.REALISTIC["n_chroms"]

@@ -241,8 +241,8 @@ def run_tool(name, *argv):
 
 
 def test_em_crossover_tool(small_set):
-    d = run_tool("em_crossover", "--data", small_set[0], "--reps", "1",
-                 "--walls", "1", "--warm")
+    d = run_tool("em_crossover", "--data", small_set[0], "--shape", "small",
+                 "--reps", "1", "--walls", "1", "--warm")
     n = d["n_problems"]
     assert n > 0 and d["capture"]["queued"] == n
     assert set(d["prefixes"]) == {"all"} and d["prefixes"]["all"]["k"] == n
@@ -315,8 +315,8 @@ def test_mcf_crossover_tool():
 
 
 def test_prep_crossover_tool(small_set):
-    d = run_tool("prep_crossover", "--data", small_set[0], "--reps", "1",
-                 "--granules", "2048")
+    d = run_tool("prep_crossover", "--data", small_set[0], "--shape",
+                 "small", "--reps", "1", "--granules", "2048")
     assert set(d["modes"]) == {"off", "all", "budget_2048"}
     for name, m in d["modes"].items():
         assert m["body_equals_reference"], name

@@ -52,7 +52,8 @@ def test_scan_covers_the_tools():
     tools = os.path.join(PORT, "tools")
     names = sorted(f for f in os.listdir(tools) if f.endswith(".py"))
     assert {"em_crossover.py", "mcf_crossover.py", "prep_crossover.py",
-            "device_character.py"} <= set(names)
+            "device_character.py", "realistic.py",
+            "lowmem_scaling.py"} <= set(names)
     scanned = set(_sources())
     for f in names:
         assert os.path.relpath(os.path.join(tools, f), ROOT) in scanned, f
