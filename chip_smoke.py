@@ -3,6 +3,7 @@
 one NVIDIA GPU and fails unless every phase holds.
 
     python3 chip_smoke.py [--n-frags N] [--big-frags M] [--easy-frags E]
+        [--quick-frags Q]
 
 Phases:
   1. the card's name and power limit (nvidia-smi); CUDA must be available.
@@ -146,6 +147,15 @@ Phases:
      `-g --low-mem` (byte for byte, no launch in either); the first prep
      chunk is timed (its flushes of deep loci are halved to fit the prep
      tiers, so none holds 100 loci).
+  9. the port's scoreboard (strawberry_tpu_torch/tools/bench.py, bench.py's
+     counterpart) with --quick-only, in a process of its own, on bench.py's
+     quick set (dataset_1m: seed 77, 4 x 2 Mb, up to 3 isoforms, no strand
+     flag) at 500,000 fragments (--quick-frags), generated as phase 7's
+     beside it into build/strawberry_tpu_torch/crossover/quick_<n>/: its
+     checks must hold (--fast-em at the default bound gives the default's
+     body byte for byte; the f32 route, STRAWB_FASTEM_AFTER=0, sends
+     problems to the card and gives the default's transcripts with TPM
+     p99 relative error <= 1e-3), and its record is printed.
 
 The prep and MCF times come with their bounds too. The line before the
 last is the JSON kernel report; the last line is
@@ -2447,6 +2457,8 @@ def mixed_fast_em(base, host_run, host_gtf):
 # dataset_10m, the easy set, at its full size (phase 8)
 BIG_FRAGS = 2_500_000
 EASY_FRAGS = 5_000_000
+# bench.py's dataset_1m, the quick set, at its size (phase 9)
+QUICK_FRAGS = 500_000
 
 
 def start_big_set(shape, n_frags):
@@ -2617,6 +2629,32 @@ def big_phase(shape, n_frags, dev, gen, e2e, low_mem=False):
             "main_path_prep_chunk": prep, "main_path_mcf": mcf}
 
 
+def bench_phase(gen):
+    """Phase 9: tools/bench.py --quick-only on the quick set, in a process
+    of its own (which asks for CUDA itself); its checks must hold."""
+    finish_big_set("quick", QUICK_FRAGS, gen)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "strawberry_tpu_torch.tools.bench",
+         "--quick-only", "--quick-frags", str(QUICK_FRAGS)], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"tools/bench.py --quick-only: exit code "
+            f"{proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    checks = line["checks"]
+    require(line["checks_ok"] and checks["fast_em_body_equals_default"]
+            and line["fast_em_f32_device_frac"] > 0
+            and line["fast_em_f32_tpm_p99_rel_err"] <= 1e-3,
+            f"tools/bench.py --quick-only: checks {json.dumps(checks)}")
+    keep = ("value", "wall_s", "reads", "cold_wall_s", "device_frac",
+            "reads_per_sec_1m", "fast_em_reads_per_sec_1m",
+            "fast_em_device_frac", "fast_em_f32_reads_per_sec_1m",
+            "fast_em_f32_device_frac", "fast_em_f32_tpm_p99_rel_err",
+            "peak_rss_mb")
+    return {"process_s": time.perf_counter() - t0,
+            **{k: line[k] for k in keep}}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-frags", type=int, default=1_000_000)
@@ -2638,6 +2676,7 @@ def main():
     try:
         gens["realistic"] = start_big_set("realistic", args.big_frags)
         gens["easy"] = start_big_set("easy", args.easy_frags)
+        gens["quick"] = start_big_set("quick", QUICK_FRAGS)
         return phases(args, card, t_start, gens)
     finally:
         for proc, _logf in gens.values():
@@ -2647,7 +2686,7 @@ def main():
 
 
 def phases(args, card, t_start, gens):
-    """Phases 2-8 and the two last lines; the sets of phases 7 and 8 are
+    """Phases 2-9 and the two last lines; the sets of phases 7-9 are
     generated by `gens` (start_big_set, by shape) meanwhile."""
     import torch
     dev = torch.device("cuda")
@@ -2734,6 +2773,10 @@ def phases(args, card, t_start, gens):
                      low_mem=True)
     log("  " + json.dumps({k: v for k, v in easy.items()
                            if not k.startswith("main_path")}))
+
+    log(f"phase 9: the scoreboard (tools/bench.py --quick-only) on bench.py's "
+        f"quick set, {QUICK_FRAGS} fragments")
+    log("  bench: " + json.dumps(bench_phase(gens["quick"])))
 
     src = "strawberry_tpu_torch/csrc/em_bucket.cu"
     replaces = {"f32": "strawberry_tpu/quant/pallas_em.py:34",

@@ -59,16 +59,36 @@ def setup(args) -> None:
     own, so this one needs no torch: a CLI process it starts takes this
     process's peak resident set for the floor of its own (peak_rss_mb):
     4,623 MB on an H100 host where the tool had imported torch and asked
-    for CUDA (PERF.md section 6)."""
+    for CUDA (PERF.md section 6). That process also builds the host
+    library and, on the card, every kernel (each once an install), so no
+    run a tool times pays a build."""
     os.environ["STRAWB_PLATFORM"] = args.device
     for k in ROUTING_VARS:
         os.environ.pop(k, None)
-    if args.device == "cuda" and subprocess.run(
-            [sys.executable, "-c", "import sys, torch; "
-             "sys.exit(0 if torch.cuda.is_available() else 1)"],
-            cwd=ROOT).returncode != 0:
+    rc = subprocess.run([sys.executable, "-c", _PREPARE, args.device],
+                        cwd=ROOT).returncode
+    if rc == _NO_CUDA:
         raise SystemExit(f"{sys.argv[0]}: CUDA is not available; "
                          "--device cpu runs the plain versions")
+    if rc != 0:
+        raise RuntimeError(f"building the host library or the kernels: "
+                           f"exit code {rc}")
+
+
+_NO_CUDA = 3
+_PREPARE = f"""
+import glob, os, sys
+if sys.argv[1] == "cuda":
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit({_NO_CUDA})
+from strawberry_tpu_torch.io.native import get_lib
+get_lib()
+if sys.argv[1] == "cuda":
+    from strawberry_tpu_torch.utils import kernels
+    kernels.build_all(sorted(os.path.basename(p)[:-3] for p in
+                             glob.glob(os.path.join(kernels.CSRC, "*.cu"))))
+"""
 
 
 def card(device: str) -> str:
@@ -111,10 +131,16 @@ EASY = dict(seed=101, n_chroms=16, chrom_len=2_000_000, max_isoforms=8,
 DEEP = dict(EASY, seed=111, n_chroms=1, chrom_len=32_000_000)
 # the tests' sets: sim.make_dataset's defaults at seed 9 (XS tags)
 SMALL = dict(seed=9)
+# bench.py's dataset_1m, the quick set: seed 77, 4 chromosomes of 2 Mb, up
+# to 3 isoforms, the sim's default protocol; bench.py runs it with no
+# strand flag (bench.py:153)
+QUICK = dict(seed=77, n_chroms=4, chrom_len=2_000_000, max_isoforms=3)
 
-# shape: (sim.make_dataset's arguments less n_frags, the CLI's strand flag)
+# shape: (sim.make_dataset's arguments less n_frags, the CLI's strand flag
+# or None for none)
 SHAPES = {"realistic": (REALISTIC, "--fr"), "easy": (EASY, "--rf"),
-          "deep": (DEEP, "--rf"), "small": (SMALL, "--fr")}
+          "deep": (DEEP, "--rf"), "small": (SMALL, "--fr"),
+          "quick": (QUICK, None)}
 # the record a generated set keeps beside it
 SHAPE_FILE = "shape.json"
 
@@ -131,14 +157,25 @@ def set_paths(d: str) -> Tuple[str, str]:
 
 
 def generate(d: str, shape: str, n_frags: int) -> None:
-    """Make the set of `shape` at `n_frags` fragments in `d` and record its
-    shape beside it (last: a record means a whole set)."""
+    """Make the set of `shape` at `n_frags` fragments in `d`, with its
+    annotation's index (index()), and record its shape beside it (last: a
+    record means a whole set)."""
     from ..sim import make_dataset
     kwargs, strand = SHAPES[shape]
     make_dataset(d, n_frags=n_frags, **kwargs)
+    index(set_paths(d)[1])
     with open(os.path.join(d, SHAPE_FILE), "w") as f:
         json.dump({"shape": shape, "n_frags": n_frags, "strand": strand,
                    "make_dataset": kwargs}, f)
+
+
+def index(gtf: str) -> None:
+    """Write the annotation's index (io/gff.py's `<gtf>.sbidx` sidecar,
+    which a run loads instead of parsing the GTF) where it is missing or
+    stale: the first run a tool times on a set then does what every later
+    one does, and writes nothing."""
+    from ..io.gff import parse_native
+    parse_native(gtf, cache=True)
 
 
 def recorded_shape(d: str) -> Optional[dict]:
@@ -155,8 +192,13 @@ class DataSet(NamedTuple):
     bam: str
     gtf: str
     shape: str
-    strand: str
+    strand: Optional[str]    # None: the shape runs with no strand flag
     n_frags: Optional[int]   # None: a set given without a record
+
+    @property
+    def flags(self) -> List[str]:
+        """The CLI's strand flag of the set, as argv items."""
+        return [self.strand] if self.strand else []
 
 
 def resolve(d: str, shape: Optional[str], n_frags: int,
@@ -187,15 +229,30 @@ def resolve(d: str, shape: Optional[str], n_frags: int,
 def dataset(args) -> DataSet:
     """--data (default: the directory of --shape at --n-frags) and its
     shape (resolve), generated on that shape at --n-frags when the
-    directory holds no set, in a process of its own: the generator's peak
-    resident set (14 GB at 5M realistic fragments) stays out of this
-    process and of the runs it starts (peak_rss_mb)."""
+    directory holds no set, else indexed (start_preparing), in a process
+    of its own: the generator's peak resident set (14 GB at 5M realistic
+    fragments) stays out of this process and of the runs it starts
+    (peak_rss_mb)."""
     shape = getattr(args, "shape", None)
     d = args.data or set_dir(shape or "realistic", args.n_frags)
     ds = resolve(d, shape, args.n_frags, given=args.data is not None)
-    if not (os.path.exists(ds.bam) and os.path.exists(ds.gtf)):
-        wait_generated(start_generating(d, ds.shape, ds.n_frags))
+    wait_generated(start_preparing(ds))
     return ds
+
+
+def datasets(wanted: List[Tuple[str, int]], root: str = OUT_DIR
+             ) -> Dict[Tuple[str, int], DataSet]:
+    """The sets of `wanted` ((shape, n_frags) each) under `root` as
+    <shape>_<n>, every missing one generated first, all side by side, each
+    in a process of its own (as dataset())."""
+    sets, started = {}, []
+    for shape, n in wanted:
+        d = set_dir(shape, n, root)
+        sets[shape, n] = ds = resolve(d, shape, n, given=False)
+        started.append(start_preparing(ds))
+    for s in started:
+        wait_generated(s)
+    return sets
 
 
 def start_generating(d: str, shape: str, n_frags: int,
@@ -209,8 +266,19 @@ def start_generating(d: str, shape: str, n_frags: int,
     return proc, f"{shape} at {n_frags} fragments"
 
 
+def start_preparing(ds: DataSet) -> Tuple[subprocess.Popen, str]:
+    """start_generating() for a set not made yet; for one on disk, index()
+    in a process of its own (its parse stays out of this process)."""
+    if not (os.path.exists(ds.bam) and os.path.exists(ds.gtf)):
+        return start_generating(ds.dir, ds.shape, ds.n_frags)
+    proc = subprocess.Popen([sys.executable, "-c", _INDEX, ds.gtf],
+                            cwd=ROOT)
+    return proc, f"the index of {ds.gtf}"
+
+
 def wait_generated(started) -> None:
-    """Wait for a start_generating() process; raise if it failed."""
+    """Wait for a start_generating() or start_preparing() process; raise
+    if it failed."""
     proc, what = started
     if proc.wait() != 0:
         raise RuntimeError(f"generating {what}: exit code {proc.returncode}")
@@ -224,6 +292,32 @@ generate(sys.argv[1], sys.argv[2], int(sys.argv[3]))
 print(f"generated {sys.argv[2]} at {sys.argv[3]} fragments in "
       f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 """
+
+
+_INDEX = """
+import sys
+from strawberry_tpu_torch.tools.common import index
+index(sys.argv[1])
+"""
+
+
+class NullSink:
+    """The null sink of bench.py and budget_50x.py, for a run's GTF and
+    log: pipeline.run_driver takes its null-log path (is_null: no log text
+    built, and the vectorised quant preamble, pipeline.py's vec_ok), which
+    a CLI run, always given a log file, never takes."""
+    is_null = True
+
+    def write(self, *_a):
+        pass
+
+
+def synchronize() -> None:
+    """Wait for the device, where this process has used one; imports no
+    torch that the runs did not import."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 @contextlib.contextmanager

@@ -77,7 +77,7 @@ def capture(bam, gtf, strand, out_dir):
     """Every EM problem of one `-g -r` run (writing its GTF and log under
     `out_dir`) as (counts, weights, niso), in the order the dispatcher was
     handed them, and the run's dispatcher counts (n_device + n_host: the
-    problems it queued)."""
+    problems it queued). `strand` is the set's strand flag, or None."""
     from .. import cli
     from ..quant import device as qdev
 
@@ -107,7 +107,7 @@ def capture(bam, gtf, strand, out_dir):
     orig = qdev.EmDispatcher
     qdev.EmDispatcher = Capturing
     try:
-        rc = cli.main(["-g", gtf, "-r", strand, "-o", out,
+        rc = cli.main(["-g", gtf, "-r", *filter(None, [strand]), "-o", out,
                        "-T", out[:-4] + ".log", bam])
     finally:
         qdev.EmDispatcher = orig
@@ -276,7 +276,7 @@ def measure(args, dev, ds, work):
                 "build to finish(); seconds on the host's clock, the device "
                 "synchronized"}
     if args.walls:
-        base = ["-g", ds.gtf, "-r", ds.strand, ds.bam]
+        base = ["-g", ds.gtf, "-r", *ds.flags, ds.bam]
         walls = common.cli_walls(
             {"default": ([], {}),
              "device_em": ([], {"STRAWB_DEVICE_EM": "1"}),

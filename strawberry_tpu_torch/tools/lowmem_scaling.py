@@ -52,7 +52,7 @@ def row(ds, work, device):
     for mode, extra in MODES:
         g = os.path.join(work, f"{ds.shape}_{ds.n_frags}_{mode}.gtf")
         (r,) = common.cli_process(
-            [["-g", ds.gtf, ds.strand, *extra, "-o", g, "-T", g[:-4] + ".log",
+            [["-g", ds.gtf, *ds.flags, *extra, "-o", g, "-T", g[:-4] + ".log",
               ds.bam]], {}, device)
         out["reads"] = r["reads"]
         out[mode] = {"wall_s": r["wall_s"], "peak_rss_mb": r["max_rss_mb"],
@@ -91,14 +91,7 @@ def main(argv=None):
     common.setup(args)
     wanted = [("easy", n) for n in sorted(sizes(args.sizes))] + \
         [("deep", n) for n in sorted(sizes(args.deep_sizes))]
-    sets, started = {}, []
-    for shape, n in wanted:
-        d = common.set_dir(shape, n, args.data_dir)
-        sets[shape, n] = ds = common.resolve(d, shape, n, given=False)
-        if not (os.path.exists(ds.bam) and os.path.exists(ds.gtf)):
-            started.append(common.start_generating(d, shape, n))
-    for s in started:
-        common.wait_generated(s)
+    sets = common.datasets(wanted, args.data_dir)
     shapes = {}
     with common.scratch_dir() as work:
         for (shape, _n), ds in sets.items():

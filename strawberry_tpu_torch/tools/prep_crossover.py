@@ -45,7 +45,7 @@ def main(argv=None):
                                      "STRAWB_PREP_BUDGET": str(g)})
     with common.scratch_dir() as work:
         walls = common.cli_walls(
-            modes, ["-g", ds.gtf, "-r", ds.strand, ds.bam], args.reps,
+            modes, ["-g", ds.gtf, "-r", *ds.flags, ds.bam], args.reps,
             args.device, reference="off", runs_dir=work)
     budgets = {g: walls[f"budget_{g}"] for g in granules}
     granule = min(budgets, key=lambda g: budgets[g]["median_s"])

@@ -120,7 +120,7 @@ def main(argv=None):
     common.setup(args)
     ds = common.dataset(args)
     from .. import routing
-    modes = {n: (["-g", ds.gtf, *argv_, ds.strand], env)
+    modes = {n: (["-g", ds.gtf, *argv_, *ds.flags], env)
              for n, (argv_, env, _twin, _rule) in MODES.items()}
     with common.scratch_dir() as work:
         walls = common.cli_walls(modes, [ds.bam], args.reps, args.device,
