@@ -15,6 +15,7 @@ import numpy as np
 
 from ..config import Config
 from ..io.bamreader import HitTable
+from ..utils.profiling import GLOBAL as PROF
 from .cluster import Segment
 from .features import Contig, FeatView
 
@@ -65,6 +66,8 @@ def _bind(lib):
     lib.strawb_cluster_start_sbam_qfused.argtypes = sbam_args + [
         C.c_int64, i64p, i8p, i64p, i32p, i64p, dp,
         C.c_int64, C.c_int64, C.c_int32]
+    lib.strawb_cluster_job_wait_work.restype = C.c_int32
+    lib.strawb_cluster_job_wait_work.argtypes = [C.c_void_p, C.c_int64]
     lib.strawb_cluster_job_wait_next.restype = C.c_void_p
     lib.strawb_cluster_job_wait_next.argtypes = [C.c_void_p, C.c_int64]
     lib.strawb_cluster_qfused.restype = C.c_int32
@@ -430,22 +433,36 @@ def stream_native_clustering(table: HitTable, cfg: Config,
             len(pdf), base_lmin, 1 if long_read else 0)
     else:
         job = starters[0](*args, *tail)
+    # the main thread's waits and work here are ranges of their own:
+    # stream_wait_decode (until the decoder hands partition k's block to
+    # the job, or the stream ends), stream_wait_cluster (until the workers
+    # finish partition k with its fused prep), cluster_wrap (its views)
     try:
         if streaming:
             k = 0
             while True:
-                h = lib.strawb_cluster_job_wait_next(job, k)
+                with PROF.phase("stream_wait_decode"):
+                    more = lib.strawb_cluster_job_wait_work(job, k)
+                if not more:
+                    break
+                with PROF.phase("stream_wait_cluster"):
+                    h = lib.strawb_cluster_job_wait_next(job, k)
                 if not h:
                     break
-                yield from _decode_cluster_handle(lib, h, cfg, ref_mrnas)
+                with PROF.phase("cluster_wrap"):
+                    clusters = _decode_cluster_handle(lib, h, cfg, ref_mrnas)
+                yield from clusters
                 k += 1
             # surface a decode failure (wait_block raises on error)
             table.wait_block(k + (1 << 60))
         else:
             nparts = lib.strawb_cluster_job_parts(job)
             for k in range(nparts):
-                h = lib.strawb_cluster_job_wait(job, k)
-                yield from _decode_cluster_handle(lib, h, cfg, ref_mrnas)
+                with PROF.phase("stream_wait_cluster"):
+                    h = lib.strawb_cluster_job_wait(job, k)
+                with PROF.phase("cluster_wrap"):
+                    clusters = _decode_cluster_handle(lib, h, cfg, ref_mrnas)
+                yield from clusters
     finally:
         lib.strawb_cluster_job_free(job)
         del keep

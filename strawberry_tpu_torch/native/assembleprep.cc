@@ -1301,14 +1301,50 @@ const i64* strawb_asmb_tleft(StrawbAsmBatch* b) { return b->t_left.data(); }
 const i32* strawb_asmb_tlen(StrawbAsmBatch* b) { return b->t_len.data(); }
 void strawb_asmb_free(StrawbAsmBatch* b) { delete b; }
 
-// cumulative native thread-CPU seconds: [asmprep, quantprep, fld,
-// cluster_scan, cluster_collapse, cluster_emit]; reset=1 zeroes after
+// cumulative native thread-CPU seconds, one a perfcnt.h slot in its
+// order; reset=1 zeroes after
 // reading (Python caller: utils/profiling.py native_counters)
 void strawb_perf_read(double* out, i32 reset) {
   for (int k = 0; k < strawb_perf::kNumCounters; ++k) {
     out[k] = 1e-9 * (double)strawb_perf::slot(k).load();
     if (reset) strawb_perf::slot(k).store(0);
   }
+}
+
+// The native scopes as spans on a trace's timeline (perfcnt.h; Python
+// caller: utils/profiling.py Profiler.start_trace / stop_trace). start:
+// 0, or -1 where a recording runs or was not taken yet.
+i32 strawb_perf_trace_start(i64 cap) {
+  return strawb_perf::trace_start(cap) ? 0 : -1;
+}
+
+// stop: the spans held; *dropped, those a full buffer refused
+i64 strawb_perf_trace_stop(i64* dropped) {
+  return strawb_perf::trace_stop(dropped);
+}
+
+// take: copies the first n held spans out (after stop) and frees the buffer
+void strawb_perf_trace_take(i32* slot, i32* tid, i64* part, i64* t0,
+                            i64* t1, i64 n) {
+  auto& r = strawb_perf::recording();
+  if (r.on.load()) return;
+  for (i64 i = 0; i < n && i < r.cap; ++i) {
+    const strawb_perf::Span& s = r.buf[i];
+    slot[i] = s.slot;
+    tid[i] = s.tid;
+    part[i] = s.part;
+    t0[i] = s.t0;
+    t1[i] = s.t1;
+  }
+  std::free(r.buf);
+  r.buf = nullptr;
+  r.cap = 0;
+  r.next.store(0);
+}
+
+// spans recorded in this process's life (held and dropped)
+i64 strawb_perf_trace_recorded() {
+  return strawb_perf::recording().recorded.load();
 }
 
 i32 strawb_asm_status(StrawbAsm* r) { return r->status; }

@@ -19,7 +19,6 @@
 // Build: tools/build_native.sh -> strawberry_tpu/native/libstrawberry_host.so
 
 #include <algorithm>
-#include <chrono>
 #include <deque>
 #include <memory>
 #include <cstdint>
@@ -496,8 +495,6 @@ static void concat(std::vector<T>& dst, std::vector<Partial>& parts,
 
 static bool decode_records(const uint8_t* buf, size_t n, const Config& cfg,
                            Result& R, int n_threads) {
-  if (getenv("STRAWB_NATIVE_DEBUG"))
-    fprintf(stderr, "[native] inflated %zu bytes\n", n);
   if (n < 12 || memcmp(buf, "BAM\1", 4) != 0) {
     R.error = "not a BAM file";
     return false;
@@ -1083,14 +1080,6 @@ void StrawbSbam::run() {
   // queue (2 windows) caps memory; low-mem backpressure inside
   // finalize_block stalls stage 2, which fills the queue and stalls
   // stage 1.
-  const bool dbg = getenv("STRAWB_NATIVE_DEBUG") != nullptr;
-  auto now = [] {
-    return std::chrono::duration<double>(
-               std::chrono::steady_clock::now().time_since_epoch())
-        .count();
-  };
-  double t_read = 0, t_index = 0, t_inflate = 0, t_all = dbg ? now() : 0;
-  double t_scan = 0, t_parse = 0, t_merge = 0;
   FILE* f = fopen(path.c_str(), "rb");
   if (!f) {
     fail("cannot open BAM");
@@ -1136,15 +1125,10 @@ void StrawbSbam::run() {
         if (carry.size() < need) return;  // consumed the whole chunk
         size_t off0 = 0;
         carry_part[0].clear();
-        double t0 = dbg ? now() : 0;
         decode_range(carry.data(), &off0, 0, 1, cfg, carry_part[0]);
-        if (dbg) t_parse += now() - t0;
-        double t0m = dbg ? now() : 0;
         acc.append(carry_part);
-        if (dbg) t_merge += now() - t0m;
         carry.clear();
       }
-      double t0s = dbg ? now() : 0;
       offs.clear();
       size_t p = pos;
       while (p + 4 <= n) {
@@ -1153,10 +1137,8 @@ void StrawbSbam::run() {
         offs.push_back(p);
         p += 4 + (size_t)bs;
       }
-      if (dbg) t_scan += now() - t0s;
       size_t nrec = offs.size();
       if (nrec) {
-        double t0p = dbg ? now() : 0;
         size_t TT = nrec < 4096 ? 1 : T;
         if (parts.size() < TT) parts.resize(TT);
         for (size_t t = 0; t < TT; ++t) parts[t].clear();
@@ -1178,13 +1160,10 @@ void StrawbSbam::run() {
           }
           for (auto& th : pool) th.join();
         }
-        if (dbg) t_parse += now() - t0p;
-        double t0m = dbg ? now() : 0;
         {
           strawb_perf::Scope _pm(strawb_perf::kBamMerge);
           acc.append(parts);
         }
-        if (dbg) t_merge += now() - t0m;
       }
       carry.assign(buf + p, buf + n);
     };
@@ -1254,23 +1233,19 @@ void StrawbSbam::run() {
   bool s1_failed = false;
   while (!q_fail.load(std::memory_order_relaxed)) {
     if (!eof) {
-      double t0 = dbg ? now() : 0;
       size_t old = comp.size();
       comp.resize(old + CHUNK);
       size_t got = fread(comp.data() + old, 1, CHUNK, f);
       comp.resize(old + got);
       if (got < CHUNK) eof = true;
       CHUNK = CHUNK_STEADY;
-      if (dbg) t_read += now() - t0;
     }
     if (comp.empty()) break;
 
     std::vector<BlockRef> blocks;
     size_t consumed = 0, total_out = 0;
-    double t0i = dbg ? now() : 0;
     bool idx_ok = bgzf_index_prefix(comp.data(), comp.size(), blocks,
                                     consumed, total_out);
-    if (dbg) t_index += now() - t0i;
     if (!idx_ok) {
       fail("malformed BGZF stream");
       s1_failed = true;
@@ -1290,7 +1265,6 @@ void StrawbSbam::run() {
     Win w;
     w.n = total_out;
     w.buf.reset(new uint8_t[total_out]);
-    double t0f = dbg ? now() : 0;
     {
       std::atomic<int> ok{1};
       size_t nb = blocks.size();
@@ -1330,7 +1304,6 @@ void StrawbSbam::run() {
         s1_failed = true;
       }
     }
-    if (dbg) t_inflate += now() - t0f;
     if (s1_failed) break;
     comp.erase(comp.begin(), comp.begin() + consumed);
 
@@ -1351,12 +1324,6 @@ void StrawbSbam::run() {
     qcv.notify_all();
   }
   consumer.join();
-  if (dbg)
-    fprintf(stderr,
-            "[sbam] total=%.3f read=%.3f index=%.3f inflate=%.3f scan=%.3f "
-            "parse=%.3f merge=%.3f\n",
-            now() - t_all, t_read, t_index, t_inflate, t_scan, t_parse,
-            t_merge);
 }
 
 StrawbSbam* strawb_sbam_open(const char* path, int32_t max_intron,
@@ -1650,13 +1617,6 @@ StrawbBam* strawb_bam_load(const char* path, int32_t max_intron,
                            int32_t min_intron, int32_t unique_only,
                            int32_t fr, int32_t rf, int32_t max_hist,
                            int32_t min_mapq, int32_t n_threads) {
-  const bool dbg = getenv("STRAWB_NATIVE_DEBUG") != nullptr;
-  auto now = [] {
-    return std::chrono::duration<double>(
-               std::chrono::steady_clock::now().time_since_epoch())
-        .count();
-  };
-  double t0 = dbg ? now() : 0.0;
   FILE* f = fopen(path, "rb");
   if (!f) return nullptr;
   fseek(f, 0, SEEK_END);
@@ -1671,12 +1631,10 @@ StrawbBam* strawb_bam_load(const char* path, int32_t max_intron,
 
   auto* h = new StrawbBam();
   std::vector<uint8_t> buf;
-  double t1 = dbg ? now() : 0.0;
   if (!bgzf_inflate_all(raw.data(), raw.size(), buf, n_threads)) {
     h->r.error = "BGZF inflate failed";
     return h;
   }
-  double t2 = dbg ? now() : 0.0;
   Config cfg;
   cfg.max_intron_length = max_intron;
   cfg.min_intron_length = min_intron;
@@ -1687,9 +1645,6 @@ StrawbBam* strawb_bam_load(const char* path, int32_t max_intron,
   cfg.min_map_qual = min_mapq;
   cfg.verbose = env_verbose();
   decode_records(buf.data(), buf.size(), cfg, h->r, n_threads);
-  if (dbg)
-    fprintf(stderr, "[native] bam_load read=%.3fs inflate=%.3fs parse=%.3fs\n",
-            t1 - t0, t2 - t1, now() - t2);
   return h;
 }
 
@@ -2049,13 +2004,6 @@ int32_t strawb_span_parse(StrawbSpan* S, int64_t start, int64_t end) {
   size_t nrec = offs.size();
   size_t T = (size_t)S->n_threads;
   if (nrec < 4096) T = 1;
-  const bool dbg = getenv("STRAWB_NATIVE_DEBUG") != nullptr;
-  auto now = [] {
-    return std::chrono::duration<double>(
-               std::chrono::steady_clock::now().time_since_epoch())
-        .count();
-  };
-  double t_scan0 = dbg ? now() : 0;
   std::vector<Partial> parts(T);
   if (T <= 1) {
     decode_range(S->buf.data(), offs.data(), 0, nrec, S->cfg, parts[0]);
@@ -2069,7 +2017,6 @@ int32_t strawb_span_parse(StrawbSpan* S, int64_t start, int64_t end) {
     }
     for (auto& th : pool) th.join();
   }
-  double t_dec = dbg ? now() - t_scan0 : 0;
   Result& R = S->R;
   for (auto& p : parts) R.paired_end |= p.paired_end;
   // ordered seq lens (first max_read_num_4_rl accepted in span order) so
@@ -2108,9 +2055,6 @@ int32_t strawb_span_parse(StrawbSpan* S, int64_t start, int64_t end) {
   // the compressed file copy and inflate buffer are no longer needed
   std::vector<uint8_t>().swap(S->raw);
   std::vector<uint8_t>().swap(S->buf);
-  if (dbg)
-    fprintf(stderr, "[span] nrec=%zu decode=%.3f concat=%.3f\n", nrec,
-            t_dec, now() - t_scan0 - t_dec);
   return 1;
 }
 

@@ -20,7 +20,6 @@
 
 #include "perfcnt.h"
 #include <algorithm>
-#include <chrono>
 #include <cstdio>
 #include <cstdlib>
 #include <cmath>
@@ -1045,13 +1044,6 @@ class Runner {
     const bool p2 = cfg_.mode == 1;
     strawb_perf::Scope _ps(p2 ? strawb_perf::kScan2
                               : strawb_perf::kClusterScan);
-    const bool dbg = getenv("STRAWB_NATIVE_DEBUG") != nullptr;
-    double t_scan = 0, t_collapse = 0, t_emit = 0, t0 = 0;
-    auto now = [] {
-      return std::chrono::duration<double>(
-                 std::chrono::steady_clock::now().time_since_epoch())
-          .count();
-    };
     o.cl_ref_off.push_back(0);
     o.cl_uniq_off.push_back(0);
     o.cl_seg_off.push_back(0);
@@ -1059,21 +1051,17 @@ class Runner {
     while (true) {
       c.reset();
       ++cur_serial_;  // invalidates open_serial_ fast-path entries
-      if (dbg) t0 = now();
       int rc = cfg_.mode == 1 ? next_cluster_ref_demand(c)
                               : next_cluster_refguide(c);
-      if (dbg) t_scan += now() - t0;
       if (rc == -1) break;
       if (c.ref_id == -1) continue;
       // finalize (open mates dropped), collapse + boundaries
       if (c.size() > 0) {
-        if (dbg) t0 = now();
         {
           strawb_perf::Scope _pc(p2 ? strawb_perf::kCollapse2
                                     : strawb_perf::kClusterCollapse);
           collapse(c);
         }
-        if (dbg) t_collapse += now() - t0;
         if (cfg_.enforce_ref_models && !c.refs.empty()) {
           c.leftmost = UINT_MAX64;
           c.rightmost = 0;
@@ -1091,7 +1079,6 @@ class Runner {
         refine(c, segs);
       }
       // emit
-      if (dbg) t0 = now();
       {
         strawb_perf::Scope _pe(p2 ? strawb_perf::kEmit2
                                   : strawb_perf::kClusterEmit);
@@ -1156,11 +1143,7 @@ class Runner {
         }
         o.cl_seg_off.push_back((i64)o.sg_left.size());
       }
-      if (dbg) t_emit += now() - t0;
     }
-    if (dbg)
-      fprintf(stderr, "[native] runner scan=%.3fs collapse=%.3fs emit=%.3fs\n",
-              t_scan, t_collapse, t_emit);
   }
 
  private:
@@ -1608,6 +1591,7 @@ static void job_spawn_sbam(StrawbClusterJob* job, i32 n_threads) {
             if (job->aborted) break;
           }
         }
+        strawb_perf::PartTag _tag((int64_t)k);
         auto* out = new StrawbClusters();
         Runner runner(job->cfg, w.h, job->r);
         // single-block partitions cache their GlobalPairs on the stream
@@ -1657,6 +1641,7 @@ static void job_spawn(StrawbClusterJob* job, i32 n_threads) {
       for (;;) {
         size_t k = job->next.fetch_add(1);
         if (k >= job->parts.size()) break;
+        strawb_perf::PartTag _tag((int64_t)k);
         auto* out = new StrawbClusters();
         Runner runner(job->cfg, job->h, job->r);
         const Part& p = job->parts[k];
@@ -1875,6 +1860,18 @@ StrawbClusterJob* strawb_cluster_start_sbam_qfused(
   return job;
 }
 
+// Streaming consumption, first half: blocks until the decoder has handed
+// part k's block to the job (1) or the stream ended before part k (0). The
+// caller then collects the part with strawb_cluster_job_wait_next; the two
+// waits tell the decoder's time from the clustering workers'.
+i32 strawb_cluster_job_wait_work(StrawbClusterJob* job, i64 k) {
+  std::unique_lock<std::mutex> g(job->mu);
+  job->cv.wait(g, [&] {
+    return (i64)job->works.size() > k || job->stream_done;
+  });
+  return (i64)job->works.size() > k ? 1 : 0;
+}
+
 // Streaming consumption: blocks until part k is clustered (or the stream is
 // exhausted). Returns the part's handle (caller frees with
 // strawb_cluster_free) or NULL when the stream ended before part k.
@@ -1935,7 +1932,6 @@ StrawbClusters* strawb_cluster_run(
 
   unsigned hw = std::thread::hardware_concurrency();
   i64 n_threads = hw > 1 ? 2 : 1;
-  if (getenv("STRAWB_FORCE_1T")) n_threads = 1;  // profiling aid
   if (parts.size() <= 1 || n_threads <= 1) {
     Runner runner(cfg, h, r);
     runner.run_range(out->o, 0, h.n, 0, r.n);

@@ -657,16 +657,17 @@ class Sample:
             return self._assemble_batched(log)
         self.num_cluster = self.num_cluster_base
         for cluster in self.iter_clusters("refguide"):
-            asmb = self.assemble_cluster(cluster, log)
-            self.assembly.extend(asmb)
-            if not getattr(log, "is_null", False):
-                ref_name = self.table.ref_real_names[cluster.ref_id]
-                log.write(f"Inspect gene: {ref_name}:"
-                          f"{cluster.leftmost}-{cluster.rightmost}\n")
-                log.write(f"Has inspected {self.total_mapped_reads} "
-                          f"reads\n")
-            if len(self._fld_specs) >= 128:
-                self._flush_fld_async()
+            with PROF.phase("pass1_cluster"):
+                asmb = self.assemble_cluster(cluster, log)
+                self.assembly.extend(asmb)
+                if not getattr(log, "is_null", False):
+                    ref_name = self.table.ref_real_names[cluster.ref_id]
+                    log.write(f"Inspect gene: {ref_name}:"
+                              f"{cluster.leftmost}-{cluster.rightmost}\n")
+                    log.write(f"Has inspected {self.total_mapped_reads} "
+                              f"reads\n")
+                if len(self._fld_specs) >= 128:
+                    self._flush_fld_async()
         self._drain_fld()
 
     def _assemble_batched(self, log: TextIO):
@@ -736,10 +737,12 @@ class Sample:
             collected.clear()
 
         for cluster in self.iter_clusters("refguide"):
-            collected.append((cluster, self.prepare_cluster_assembly(cluster)))
-            if len(collected) >= 128:
-                _drain()
-                self._flush_fld_async()
+            with PROF.phase("pass1_cluster"):
+                collected.append((cluster,
+                                  self.prepare_cluster_assembly(cluster)))
+                if len(collected) >= 128:
+                    _drain()
+                    self._flush_fld_async()
         _drain()
         self._drain_fld()
 
@@ -747,11 +750,12 @@ class Sample:
         """Pass 1 for --no-assembly (alignments.cpp:1189-1233)."""
         self.num_cluster = self.num_cluster_base
         for cluster in self.iter_clusters("refdemand"):
-            self.num_cluster += 1
-            cluster.id = self.num_cluster
-            self.frag_len_dist(cluster.ref_mrnas, cluster, log)
-            if len(self._fld_specs) >= 128:
-                self._flush_fld_async()
+            with PROF.phase("pass1_cluster"):
+                self.num_cluster += 1
+                cluster.id = self.num_cluster
+                self.frag_len_dist(cluster.ref_mrnas, cluster, log)
+                if len(self._fld_specs) >= 128:
+                    self._flush_fld_async()
         self._drain_fld()
 
     # ------------------------------------------------------------------
@@ -1049,7 +1053,8 @@ class Sample:
             thetas = dispatcher.finish()
             thetas.extend([None] * (len(pending) - len(thetas)))
         n_raw_ok = 0
-        with PROF.phase("host_em", items=sum(len(i) for i, _f in raw_futs)):
+        with PROF.phase("host_em_wait",
+                        items=sum(len(i) for i, _f in raw_futs)):
             raw_done = [(idxs, *f.result()) for idxs, f in raw_futs]
         if raw_pool is not None:
             raw_pool.shutdown(wait=False)

@@ -577,7 +577,8 @@ def cli_walls(modes: Dict[str, Tuple[List[str], Dict[str, str]]],
             m["max_rss_mb"].append(res[-1]["max_rss_mb"])
             m["locus_context_s"].append(
                 res[0]["phases_s"].get("locus_context", 0.0))
-            m["host_em_s"].append(res[0]["phases_s"].get("host_em", 0.0))
+            m["host_em_s"].append(sum(res[0]["phases_s"].get(k, 0.0)
+                                      for k in ("host_em", "host_em_wait")))
             for key in ("reads", "em_stats", "prep_stats", "flow_stats",
                         "launches", "function_launches", "phases_s"):
                 m[key] = res[0][key]

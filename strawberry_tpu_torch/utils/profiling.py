@@ -18,6 +18,14 @@ the two drift apart as the process ages, so kernels launched within that
 lag of the trace's start are dropped. A run launches its first kernel
 seconds after its trace starts; a trace started just before a launch in an
 old process is what loses one.
+
+The native pools' scopes (native/perfcnt.h, the slots of native_counters)
+are in the same file while the trace runs: complete events of category
+"native" on the native threads' ids, named by _NATIVE_COUNTER_NAMES, with
+args {"part": k} where a clustering worker ran partition k. Their clock is
+the trace's: an event's ts (us) x 1000 plus the file's baseTimeNanoseconds
+is CLOCK_REALTIME in ns. A span the native buffer had no room for is
+counted, and stopping the trace then raises NativeSpansDropped.
 """
 from __future__ import annotations
 
@@ -49,6 +57,17 @@ class TraceIncomplete(RuntimeError):
         self.path, self.launched, self.lost = path, launched, lost
 
 
+class NativeSpansDropped(RuntimeError):
+    """The native span buffer filled while a trace ran."""
+
+    def __init__(self, path: str, held: int, dropped: int):
+        super().__init__(
+            f"STRAWB_TRACE_DIR: {path} holds {held} of the {held + dropped} "
+            f"native spans recorded while it ran: the buffer of "
+            f"{NATIVE_SPAN_CAP} spans was full")
+        self.path, self.held, self.dropped = path, held, dropped
+
+
 def lost_kernel_records(events) -> Tuple[int, int]:
     """(kernel launches, launches without a kernel record) in a Chrome
     trace's events: each launch call the profiler recorded on the host
@@ -78,6 +97,7 @@ class Profiler:
         self._trace = None       # the running torch.profiler.profile
         self._trace_pid = None   # the process that started it
         self._trace_cuda = False
+        self._native = None      # the host library while it records spans
 
     def start_trace(self, cuda: bool = True):
         """Start the trace if STRAWB_TRACE_DIR is set and none runs. It
@@ -104,18 +124,26 @@ class Profiler:
         prof.start()
         self._trace, self._trace_pid = prof, os.getpid()
         self._trace_cuda = ProfilerActivity.CUDA in activities
+        self._native = _native_trace_start()
 
     def stop_trace(self):
         """Stop the running trace and write it; returns its path (None if
-        no trace ran). A trace that was not written raises OSError; a trace
-        of the GPU that lacks a kernel it saw launched is written and then
-        raises TraceIncomplete."""
+        no trace ran). The native spans recorded while it ran are added to
+        the file. A trace that was not written raises OSError; a trace of
+        the GPU that lacks a kernel it saw launched is written and then
+        raises TraceIncomplete, and one whose native buffer filled,
+        NativeSpansDropped."""
         if self._trace is None:
             return None
         prof, self._trace = self._trace, None
         if self._trace_cuda:
             import torch
             torch.cuda.synchronize()  # the last launches land in the trace
+        lib, self._native = self._native, None
+        spans, dropped = _native_trace_take(lib) \
+            if lib is not None and self._trace_pid == os.getpid() \
+            else (None, 0)
+        held = len(spans["slot"]) if spans else 0
         prof.stop()
         import torch.distributed as dist
         rank = (f".rank{dist.get_rank()}" if dist.is_available()
@@ -128,12 +156,20 @@ class Profiler:
         if not os.path.isfile(path) or os.path.getsize(path) == 0:
             raise OSError(f"STRAWB_TRACE_DIR: the trace was not written to "
                           f"{path}")
-        if self._trace_cuda:
+        if held or self._trace_cuda:
             with open(path) as f:
-                launched, lost = lost_kernel_records(
-                    json.load(f)["traceEvents"])
-            if lost:
-                raise TraceIncomplete(path, launched, lost)
+                trace = json.load(f)
+            if held:
+                trace["traceEvents"].extend(native_events(
+                    spans, trace.get("baseTimeNanoseconds", 0)))
+                with open(path, "w") as f:
+                    json.dump(trace, f, separators=(",", ":"))
+            if self._trace_cuda:
+                launched, lost = lost_kernel_records(trace["traceEvents"])
+                if lost:
+                    raise TraceIncomplete(path, launched, lost)
+        if dropped:
+            raise NativeSpansDropped(path, held, dropped)
         return path
 
     def _range(self, name: str):
@@ -144,8 +180,16 @@ class Profiler:
         from torch.profiler import record_function
         return record_function(name)
 
-    @contextlib.contextmanager
     def phase(self, name: str, items: int = 0):
+        """A phase of the report and, while this process traces, a range
+        of the trace; with neither, a shared no-op (the per-cluster phases
+        run thousands of times a sample)."""
+        if not self.enabled and self._trace is None:
+            return _NO_PHASE
+        return self._phase(name, items)
+
+    @contextlib.contextmanager
+    def _phase(self, name: str, items: int):
         with self._range(name):
             if not self.enabled:
                 yield
@@ -182,6 +226,10 @@ class Profiler:
 
 
 GLOBAL = Profiler(enabled=False)
+_NO_PHASE = contextlib.nullcontext()
+
+# spans a trace's native buffer holds (32 bytes each, touched as filled)
+NATIVE_SPAN_CAP = 1 << 21
 
 _NATIVE_COUNTER_NAMES = ("asm_prep", "quant_prep", "frag_len",
                          "cluster_scan", "cluster_collapse", "cluster_emit",
@@ -191,20 +239,87 @@ _NATIVE_COUNTER_NAMES = ("asm_prep", "quant_prep", "frag_len",
 
 def native_counters(reset: bool = False) -> Dict[str, float]:
     """Cumulative native thread-CPU seconds per hot path (perfcnt.h slots,
-    read via strawb_perf_read). Empty when the native lib is unavailable."""
+    read via strawb_perf_read). Empty only where the host library cannot
+    load; a read that fails once it has loaded raises."""
+    import ctypes as C
+    import numpy as np
+    from ..io.native import get_lib
     try:
-        import ctypes as C
-        import numpy as np
-        from ..io.native import get_lib
         lib = get_lib()
-        lib.strawb_perf_read.restype = None
-        lib.strawb_perf_read.argtypes = [C.POINTER(C.c_double), C.c_int32]
-        out = np.zeros(len(_NATIVE_COUNTER_NAMES), np.float64)
-        lib.strawb_perf_read(out.ctypes.data_as(C.POINTER(C.c_double)),
-                             1 if reset else 0)
-        return dict(zip(_NATIVE_COUNTER_NAMES, out.tolist()))
-    except Exception:
+    except OSError:
         return {}
+    lib.strawb_perf_read.restype = None
+    lib.strawb_perf_read.argtypes = [C.POINTER(C.c_double), C.c_int32]
+    out = np.zeros(len(_NATIVE_COUNTER_NAMES), np.float64)
+    lib.strawb_perf_read(out.ctypes.data_as(C.POINTER(C.c_double)),
+                         1 if reset else 0)
+    return dict(zip(_NATIVE_COUNTER_NAMES, out.tolist()))
+
+
+def _native_lib():
+    """The host library bound for recording native spans, or None where it
+    cannot load."""
+    import ctypes as C
+    from ..io.native import get_lib
+    try:
+        lib = get_lib()
+    except OSError:
+        return None
+    i64p = C.POINTER(C.c_int64)
+    lib.strawb_perf_trace_start.restype = C.c_int32
+    lib.strawb_perf_trace_start.argtypes = [C.c_int64]
+    lib.strawb_perf_trace_stop.restype = C.c_int64
+    lib.strawb_perf_trace_stop.argtypes = [i64p]
+    lib.strawb_perf_trace_take.restype = None
+    lib.strawb_perf_trace_take.argtypes = [C.POINTER(C.c_int32)] * 2 + \
+        [i64p] * 3 + [C.c_int64]
+    lib.strawb_perf_trace_recorded.restype = C.c_int64
+    lib.strawb_perf_trace_recorded.argtypes = []
+    return lib
+
+
+def _native_trace_start():
+    """Start recording the native scopes as spans: the host library, or
+    None where it cannot load or another trace records them."""
+    lib = _native_lib()
+    return lib if lib is not None and \
+        lib.strawb_perf_trace_start(NATIVE_SPAN_CAP) == 0 else None
+
+
+def _native_trace_take(lib):
+    """Stop recording; (spans, dropped): the spans as arrays (slot, tid,
+    part, t0 ns, t1 ns), and how many the full buffer refused."""
+    import ctypes as C
+    import numpy as np
+    dropped = C.c_int64(0)
+    n = lib.strawb_perf_trace_stop(C.byref(dropped))
+    cols = [np.zeros(n, np.int32), np.zeros(n, np.int32)] + \
+        [np.zeros(n, np.int64) for _ in range(3)]
+    lib.strawb_perf_trace_take(*(c.ctypes.data_as(C.POINTER(
+        np.ctypeslib.as_ctypes_type(c.dtype))) for c in cols), n)
+    return dict(zip(("slot", "tid", "part", "t0", "t1"), cols)), \
+        dropped.value
+
+
+def native_spans_recorded() -> int:
+    """Native spans recorded in this process's life (0 where the host
+    library cannot load)."""
+    lib = _native_lib()
+    return 0 if lib is None else lib.strawb_perf_trace_recorded()
+
+
+def native_events(spans, base_ns: int):
+    """The native spans as Chrome trace complete events on the trace's
+    clock (ts in us from the file's baseTimeNanoseconds)."""
+    pid = os.getpid()
+    rows = zip(spans["slot"].tolist(), spans["tid"].tolist(),
+               spans["part"].tolist(), spans["t0"].tolist(),
+               spans["t1"].tolist())
+    return [{"ph": "X", "cat": "native", "name": _NATIVE_COUNTER_NAMES[k],
+             "pid": pid, "tid": tid, "ts": (t0 - base_ns) / 1e3,
+             "dur": (t1 - t0) / 1e3,
+             **({"args": {"part": part}} if part >= 0 else {})}
+            for k, tid, part, t0, t1 in rows]
 
 
 def enable():

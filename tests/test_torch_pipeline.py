@@ -34,7 +34,8 @@ MODES = {"g": ["-g", "{gtf}"], "g_r": ["-g", "{gtf}", "-r"], "abinitio": []}
 # Runs every argv of the list through <package>.cli.main in one process and
 # prints the exit codes, each run's flow-solve and prep counts (none for a
 # -p run, whose work is in its workers) and EM counts, whether jax
-# or the JAX package was imported, and the shared libraries the process
+# or the JAX package was imported, the native spans the process recorded
+# for a trace (the port's), and the shared libraries the process
 # mapped, as JSON. BLOCK_JAX=1 makes `import jax` and `import
 # strawberry_tpu` fail.
 _RUNNER = """
@@ -52,9 +53,12 @@ samples = []
 run = cli.run_driver
 cli.run_driver = lambda *a, **k: samples.append(run(*a, **k)) or samples[-1]
 rcs = [cli.main(argv) for argv in json.loads(sys.argv[2])]
+prof = importlib.import_module(sys.argv[1] + ".utils.profiling")
 with open("/proc/self/maps") as f:
     libs = sorted({l.split()[-1] for l in f if l.rstrip().endswith(".so")})
 print(json.dumps({"rcs": rcs, "jax": sys.modules.get("jax") is not None,
+                  "native_spans": getattr(prof, "native_spans_recorded",
+                                          lambda: None)(),
                   "em_stats": [getattr(s, "em_stats", {}) for s in samples],
                   "jax_package": any(
                       m.split(".")[0] == "strawberry_tpu"
@@ -301,6 +305,105 @@ def test_port_traced_run_gives_untraced_body(traced, run, twin):
 def test_port_traced_runs_import_no_jax(traced):
     for _out, _d, res in traced.values():
         assert_standalone(res)
+
+
+NATIVE_CLUSTER_SPLIT = ("stream_wait_decode", "stream_wait_cluster",
+                        "cluster_wrap", "pass1_cluster")
+
+
+def trace_layout(events):
+    """(the main thread's id, its ranges by name as sorted (start, end) in
+    us, the native events)"""
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    main = next(e["tid"] for e in ann if e["name"] == "pass1_assemble")
+    ranges = {}
+    for e in ann:
+        if e["tid"] == main:
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    return main, {k: sorted(v) for k, v in ranges.items()}, \
+        [e for e in events if e.get("cat") == "native"]
+
+
+def within(spans, a, b, eps=0.01):
+    return [s for s in spans if a - eps <= s[0] and s[1] <= b + eps]
+
+
+def test_port_trace_splits_native_cluster(traced):
+    """Inside each pass's native_cluster range the main thread's waits on
+    the decoder and on the clusterer and the partition wrap are ranges of
+    their own, one of each a partition (the decoder's once more: the wait
+    for the stream's end); pass 1's per-cluster work is pass1_cluster, one
+    a cluster as pass 2's locus_context."""
+    events = trace_of(traced["traced"][1])["traceEvents"]
+    main, ranges, _native = trace_layout(events)
+    ann = [e for e in events if e.get("cat") == "user_annotation"
+           and e["name"] in NATIVE_CLUSTER_SPLIT]
+    assert {e["name"] for e in ann} == set(NATIVE_CLUSTER_SPLIT)
+    assert all(e["tid"] == main for e in ann)
+    passes = ranges["native_cluster"]
+    assert len(passes) == 2
+    for a, b in passes:
+        parts = len(within(ranges["cluster_wrap"], a, b))
+        assert parts >= 1
+        assert len(within(ranges["stream_wait_cluster"], a, b)) == parts
+        assert len(within(ranges["stream_wait_decode"], a, b)) == parts + 1
+    assert sum(len(within(ranges[n], a, b)) for a, b in passes
+               for n in NATIVE_CLUSTER_SPLIT[:3]) == sum(
+        len(ranges[n]) for n in NATIVE_CLUSTER_SPLIT[:3])
+    [(p1a, p1b)] = ranges["pass1_assemble"]
+    assert within(ranges["pass1_cluster"], p1a, p1b) == ranges["pass1_cluster"]
+    assert within(ranges["pass1_cluster"], *passes[0]) == \
+        ranges["pass1_cluster"]
+    assert len(ranges["pass1_cluster"]) == len(ranges["locus_context"])
+
+
+def test_port_trace_holds_native_spans(traced):
+    """The native pools' scopes are complete events of category native on
+    the native threads, named by the counters' slots, inside the trace's
+    first-to-last event span; no range of the harness's reading
+    (user_annotation) comes from them."""
+    from strawberry_tpu_torch.utils.profiling import _NATIVE_COUNTER_NAMES
+    events = trace_of(traced["traced"][1])["traceEvents"]
+    main, _ranges, native = trace_layout(events)
+    assert native and {e["name"] for e in native} <= set(
+        _NATIVE_COUNTER_NAMES)
+    assert any(e["tid"] != main for e in native)
+    pid = next(e["pid"] for e in events if e.get("cat") == "user_annotation")
+    assert all(e["ph"] == "X" and e["pid"] == pid and e["dur"] >= 0
+               for e in native)
+    rest = [e for e in events if e.get("cat") != "native"
+            and e.get("ph") != "M" and "ts" in e]
+    lo = min(e["ts"] for e in rest)
+    hi = max(e["ts"] + e.get("dur", 0) for e in rest)
+    assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in native)
+    assert {"scan_p2", "inflate"} <= {e["name"] for e in native}
+
+
+def test_port_trace_native_spans_share_its_clock(traced):
+    """Each stream_wait_cluster range ends no earlier than 1 ms before the
+    end of the last native span of its partition (the scans, collapses,
+    emits and fused prep of the worker that ran it): the main thread's
+    wait and the worker's scopes are read off one clock."""
+    events = trace_of(traced["traced"][1])["traceEvents"]
+    _main, ranges, native = trace_layout(events)
+    for a, b in ranges["native_cluster"]:
+        waits = within(ranges["stream_wait_cluster"], a, b)
+        for k, (_ws, we) in enumerate(waits):
+            mine = [e for e in native if e.get("args", {}).get("part") == k
+                    and a <= e["ts"] <= b]
+            assert {"scan_p2"} <= {e["name"] for e in mine}
+            assert max(e["ts"] + e["dur"] for e in mine) <= we + 1000.0
+
+
+def test_port_untraced_run_records_no_native_span(traced):
+    """Only a traced run records native spans; forked -p workers record
+    none into the parent's trace."""
+    assert traced["plain"][2]["native_spans"] == 0
+    assert traced["traced"][2]["native_spans"] > 0
+    events = trace_of(traced["traced_p2"][1])["traceEvents"]
+    pid = next(e["pid"] for e in events if e.get("cat") == "user_annotation")
+    assert all(e["pid"] == pid for e in events if e.get("cat") == "native")
 
 
 def test_port_trace_of_the_gpu_without_one_raises(tmp_path, monkeypatch):
