@@ -1452,6 +1452,22 @@ def _emit_read_diags(events, cap: Optional[int] = None,
     sys.stderr.write("".join(lines))
 
 
+def _heap(when: str) -> dict:
+    """What the process's heap holds (malloctune.heap), keys prefixed."""
+    from .utils.malloctune import heap
+    return {f"{when}_{k}": v for k, v in heap().items()}
+
+
+def _end_run(heap: dict) -> None:
+    """run_driver's end: the heap beside what its start found (PROF.heap,
+    the -v report's line; the args of the trace's heap range), then the
+    trace stops."""
+    heap.update(_heap("end"))
+    PROF.heap = heap
+    PROF.annotate("heap", heap)
+    PROF.stop_trace()
+
+
 def run_driver(bam_path: str, cfg: Config, out: TextIO,
                log: Optional[TextIO] = None,
                fragfile: Optional[TextIO] = None,
@@ -1474,6 +1490,8 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         os.environ.pop("STRAWB_VERBOSE", None)
     multiproc = cfg.num_threads > 1 and not cfg.no_quant
     PROF.start_trace(cuda=not multiproc)  # -p: no CUDA before the forks
+    with PROF.phase("heap"):
+        heap = _heap("start")
     if multiproc:
         # -p N: forked shard workers, each inflating only its own BGZF
         # block span (no parent-side decode). Falls back to the COW-table
@@ -1486,7 +1504,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
                 nrows = run_multiprocess_ranged(
                     bam_path, cfg, out, n_procs=cfg.num_threads,
                     fragfile=fragfile)
-            PROF.stop_trace()
+            _end_run(heap)
             if cfg.verbose:
                 sys.stderr.write(PROF.report(total_reads=nrows) + "\n")
             return None
@@ -1592,7 +1610,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         with PROF.phase("multiprocess_pipeline", items=len(table)):
             run_multiprocess(table, cfg, bam_path, out, log,
                              n_procs=cfg.num_threads)
-        PROF.stop_trace()
+        _end_run(heap)
         if cfg.verbose:
             sys.stderr.write(PROF.report(total_reads=len(table)) + "\n")
         return sample
@@ -1637,7 +1655,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
                 if iso.ref_id >= 0 else "?"
             print2gtf(out, iso, ref_name, "", "", "", iso.parent_id,
                       iso.trans_id, iso.ref_gene_id, iso.ref_gene_name)
-        PROF.stop_trace()
+        _end_run(heap)
         return sample
 
     if cfg.verbose:
@@ -1651,7 +1669,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
     except NotEnoughReads:
         # reference: "Not enough reads" + exit(0) (read.cpp:241-245)
         sys.stderr.write("Not enough reads\nExit program...\n")
-        PROF.stop_trace()
+        _end_run(heap)
         return sample
     if fragfile is not None:
         from .quant.fragcontext import FRAG_HEADER
@@ -1672,7 +1690,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         # single-process direct output: the per-isoform objects are only
         # an intermediate for the GTF bytes — let pass 2 skip them
         sample.proc_sample(out, log, fragfile, want_isoforms=False)
-    PROF.stop_trace()
+    _end_run(heap)
     if cfg.verbose:
         sys.stderr.write(PROF.report(total_reads=len(table)) + "\n")
     return sample

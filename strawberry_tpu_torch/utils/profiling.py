@@ -26,6 +26,10 @@ args {"part": k} where a clustering worker ran partition k. Their clock is
 the trace's: an event's ts (us) x 1000 plus the file's baseTimeNanoseconds
 is CLOCK_REALTIME in ns. A span the native buffer had no room for is
 counted, and stopping the trace then raises NativeSpansDropped.
+
+A range given args with annotate() carries them in the file (torch.profiler
+writes none of its own): run_driver's heap range, the heap at the run's
+start and end (Profiler.heap, also a line of the -v report).
 """
 from __future__ import annotations
 
@@ -98,6 +102,10 @@ class Profiler:
         self._trace_pid = None   # the process that started it
         self._trace_cuda = False
         self._native = None      # the host library while it records spans
+        self._range_args = {}    # range name -> args for its trace event
+        # the last run_driver's heap at its start and end (MB, from
+        # malloctune.heap): start_resident_mb, start_in_use_mb, end_*
+        self.heap: Dict[str, Optional[float]] = {}
 
     def start_trace(self, cuda: bool = True):
         """Start the trace if STRAWB_TRACE_DIR is set and none runs. It
@@ -144,6 +152,7 @@ class Profiler:
             if lib is not None and self._trace_pid == os.getpid() \
             else (None, 0)
         held = len(spans["slot"]) if spans else 0
+        notes, self._range_args = self._range_args, {}
         prof.stop()
         import torch.distributed as dist
         rank = (f".rank{dist.get_rank()}" if dist.is_available()
@@ -156,12 +165,17 @@ class Profiler:
         if not os.path.isfile(path) or os.path.getsize(path) == 0:
             raise OSError(f"STRAWB_TRACE_DIR: the trace was not written to "
                           f"{path}")
-        if held or self._trace_cuda:
+        if held or notes or self._trace_cuda:
             with open(path) as f:
                 trace = json.load(f)
             if held:
                 trace["traceEvents"].extend(native_events(
                     spans, trace.get("baseTimeNanoseconds", 0)))
+            for e in trace["traceEvents"] if notes else ():
+                if e.get("cat") == "user_annotation" and \
+                        e.get("name") in notes:
+                    e.setdefault("args", {}).update(notes[e["name"]])
+            if held or notes:
                 with open(path, "w") as f:
                     json.dump(trace, f, separators=(",", ":"))
             if self._trace_cuda:
@@ -171,6 +185,14 @@ class Profiler:
         if dropped:
             raise NativeSpansDropped(path, held, dropped)
         return path
+
+    def annotate(self, name: str, args: dict):
+        """Give the trace's range `name` these args: torch.profiler writes
+        none of a range's own, so they are set in the file when the trace
+        stops, on every range of that name. A no-op while no trace runs
+        in this process."""
+        if self._trace is not None and self._trace_pid == os.getpid():
+            self._range_args[name] = dict(args)
 
     def _range(self, name: str):
         """A torch.profiler range named `name` while this process traces
@@ -218,6 +240,13 @@ class Profiler:
                 if st.items and st.seconds > 0 else ""
             lines.append(f"  {name:<24s} {st.seconds:8.3f}s"
                          f"  x{st.calls}{rate}")
+        if self.heap:
+            h = {k: "n/a" if v is None else f"{v:,.1f}"
+                 for k, v in self.heap.items()}
+            lines.append(
+                f"  heap MB: start resident {h['start_resident_mb']} in use "
+                f"{h['start_in_use_mb']}; end resident "
+                f"{h['end_resident_mb']} in use {h['end_in_use_mb']}")
         native = native_counters()
         if any(native.values()):
             lines.append("  native thread-CPU: " + "  ".join(
