@@ -1141,7 +1141,10 @@ void StrawbSbam::run() {
       if (nrec) {
         size_t TT = nrec < 4096 ? 1 : T;
         if (parts.size() < TT) parts.resize(TT);
-        for (size_t t = 0; t < TT; ++t) parts[t].clear();
+        // clear every partial, not only the TT this window decodes into:
+        // append() takes them all, and a short window after a threaded one
+        // would otherwise append the earlier window's parts[1..) again
+        for (auto& pt : parts) pt.clear();
         if (TT == 1) {
           strawb_perf::Scope _pp(strawb_perf::kBamParse);
           decode_range(buf, offs.data(), 0, nrec, cfg, parts[0]);

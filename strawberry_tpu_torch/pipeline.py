@@ -1490,6 +1490,7 @@ def run_driver(bam_path: str, cfg: Config, out: TextIO,
         os.environ.pop("STRAWB_VERBOSE", None)
     multiproc = cfg.num_threads > 1 and not cfg.no_quant
     PROF.start_trace(cuda=not multiproc)  # -p: no CUDA before the forks
+    PROF.em = {}  # set by this run's EM dispatcher, if it has one
     with PROF.phase("heap"):
         heap = _heap("start")
     if multiproc:

@@ -113,11 +113,15 @@ class EmDispatcher:
 
     def _launch(self, tier: int):
         """Pad one tier batch, copy it to the device, launch the EM and
-        queue the copy of theta back to the host — without waiting."""
+        queue the copy of theta back to the host — without waiting. The
+        host's side of it is the `em_launch` range, one a launch."""
+        from ..utils.profiling import GLOBAL as PROF
         items, self._fills[tier] = self._fills[tier], []
-        theta, _failed = em_bucket(*bucket_to_torch(
-            *pad_bucket(tier, items), self.device, self.dtype))
-        self._launched.append((theta.to("cpu", non_blocking=True), items))
+        with PROF.phase("em_launch", items=len(items)):
+            theta, _failed = em_bucket(*bucket_to_torch(
+                *pad_bucket(tier, items), self.device, self.dtype))
+            self._launched.append((theta.to("cpu", non_blocking=True),
+                                   items))
 
     def finish(self) -> List[Optional[np.ndarray]]:
         from ..utils.profiling import GLOBAL as PROF
@@ -127,6 +131,10 @@ class EmDispatcher:
         if self._host_items:
             with PROF.phase("host_em", items=self.n_host):
                 _host_em_batch(self._host_items, self.results)
+        # the problems routed, in the -v report and the range's trace args
+        PROF.em = {"tier_counts": list(self.tier_counts),
+                   "n_device": self.n_device, "n_host": self.n_host}
+        PROF.annotate("device_em_fetch", PROF.em)
         with PROF.phase("device_em_fetch", items=self.n_device):
             if self._launched and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # the run's one wait

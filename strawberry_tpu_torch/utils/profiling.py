@@ -29,7 +29,9 @@ counted, and stopping the trace then raises NativeSpansDropped.
 
 A range given args with annotate() carries them in the file (torch.profiler
 writes none of its own): run_driver's heap range, the heap at the run's
-start and end (Profiler.heap, also a line of the -v report).
+start and end (Profiler.heap, also a line of the -v report); the
+device_em_fetch range, the EM dispatcher's problems by tier and its device
+and host counts (Profiler.em, also a line of the -v report).
 """
 from __future__ import annotations
 
@@ -106,6 +108,9 @@ class Profiler:
         # the last run_driver's heap at its start and end (MB, from
         # malloctune.heap): start_resident_mb, start_in_use_mb, end_*
         self.heap: Dict[str, Optional[float]] = {}
+        # the last EM dispatcher's routing (EmDispatcher.finish): the
+        # device's problems by tier, n_device and n_host
+        self.em: Dict[str, object] = {}
 
     def start_trace(self, cuda: bool = True):
         """Start the trace if STRAWB_TRACE_DIR is set and none runs. It
@@ -247,6 +252,11 @@ class Profiler:
                 f"  heap MB: start resident {h['start_resident_mb']} in use "
                 f"{h['start_in_use_mb']}; end resident "
                 f"{h['end_resident_mb']} in use {h['end_in_use_mb']}")
+        if self.em:
+            lines.append(
+                f"  em dispatch: device {self.em['n_device']} (tiers "
+                f"{', '.join(map(str, self.em['tier_counts']))}), host "
+                f"{self.em['n_host']}")
         native = native_counters()
         if any(native.values()):
             lines.append("  native thread-CPU: " + "  ".join(

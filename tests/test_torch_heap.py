@@ -59,6 +59,10 @@ def test_heap_reads_resident_and_in_use_mb():
     libc.malloc.restype = ctypes.c_void_p
     libc.malloc.argtypes = [ctypes.c_size_t]
     libc.free.argtypes = [ctypes.c_void_p]
+    # hand back the free pages an earlier test of this process left in
+    # malloc's arenas (tune()'s 1-GiB trim threshold keeps them), so that
+    # the block below is touched fresh and not reused already resident
+    libc.malloc_trim(0)
     before = malloctune.heap()
     assert set(before) == {"resident_mb", "in_use_mb"}
     assert all(isinstance(v, float) and v > 0 for v in before.values())

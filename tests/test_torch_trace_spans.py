@@ -1,7 +1,7 @@
-"""The spans that split the port's native_cluster range: the benchmark's
-readers of them (portbench/metrics) on hand-built runs and traces, and the
-native span recording of utils/profiling.py in this process (a trace of
-the host on the CPU)."""
+"""The spans that split the port's native_cluster range, and the EM
+dispatcher's em_launch: the benchmark's readers of them (portbench/metrics)
+on hand-built runs and traces, and the native span recording of
+utils/profiling.py in this process (a trace of the host on the CPU)."""
 import ctypes as C
 import json
 import os
@@ -16,7 +16,8 @@ from strawberry_tpu_torch.utils import profiling
 READERS = {"stream_wait_decode_s": "stream_wait_decode",
            "stream_wait_cluster_s": "stream_wait_cluster",
            "cluster_wrap_s": "cluster_wrap",
-           "pass1_cluster_s": "pass1_cluster"}
+           "pass1_cluster_s": "pass1_cluster",
+           "em_launch_s": "em_launch"}
 COUNTERS = ("asm_prep", "quant_prep", "frag_len", "cluster_scan",
             "cluster_collapse", "cluster_emit", "quant_weights", "scan_p2",
             "collapse_p2", "emit_p2", "flow_ns", "inflate", "bam_parse",
